@@ -1,0 +1,164 @@
+"""KV-cache inference: slot-based prefill/decode for continuous batching
+(port of ``ray_tpu/models/decoding.py``).
+
+The cache is a (layers, slots, max_seq, kv_heads, head_dim) tensor pair
+plus a (slots,) length vector, all on the device. Each active request owns
+one slot; the decode step advances every active slot by one token.
+
+Where the JAX package's jitted steps take and return the cache (donated,
+so XLA updates it in place), these steps **write in place into the
+preallocated cache tensors** and return the same dict. ``scan`` over the
+stacked layers is a Python loop over the layer index.
+
+Not ported yet: chunked prefill, batched speculative verify, KV ingest,
+inject and ``sample_token`` (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from ray_tpu_torch.models.llama import (LlamaConfig, Params, _attn_out, _mlp,
+                                        _qkv, head_f32, layer_params)
+from ray_tpu_torch.ops.attention import mha_reference
+from ray_tpu_torch.ops.decode_attention import decode_attention
+from ray_tpu_torch.ops.norms import rmsnorm
+from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+
+Cache = Dict[str, torch.Tensor]
+
+
+def init_cache(config: LlamaConfig, num_slots: int,
+               max_seq: Optional[int] = None, dtype=None,
+               device=None) -> Cache:
+    c = config
+    S = max_seq or c.max_seq
+    dt = dtype or c.dtype
+    shape = (c.n_layers, num_slots, S, c.n_kv_heads, c.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "length": torch.zeros((num_slots,), dtype=torch.int32,
+                              device=device),
+    }
+
+
+def _attend_cached(q, k_cache, v_cache, lengths, scale):
+    """q: (B, 1, H, D) new-token queries; k/v_cache: (B, S, KV, D);
+    lengths: (B,) valid prefix per slot (incl. the new token)."""
+    return decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+
+
+def _decode_block(x, layer, k_cache, v_cache, lengths, active, cos, sin,
+                  config: LlamaConfig):
+    """One transformer block for one new token per slot, writing the
+    token's k/v in place.
+
+    x: (B, 1, E); k/v_cache: (B, S, KV, D); lengths: (B,) count BEFORE
+    this token; active: (B,) bool. Only active slots below S are written
+    (the JAX step computes every slot and keeps the active ones, and drops
+    a write at row S); every other slot rewrites its row's current
+    contents, so the write needs no host-side selection."""
+    c = config
+    B, S = k_cache.shape[0], k_cache.shape[1]
+    h = rmsnorm(x, layer["attn_norm"], c.norm_eps)
+    q, k, v = _qkv(h, layer)
+    positions = lengths.long().clamp(max=cos.shape[0] - 1)[:, None]
+    q = apply_rope(q, cos, sin, positions)
+    k = apply_rope(k, cos, sin, positions)
+
+    rows = torch.arange(B, device=x.device)
+    row = lengths.long().clamp(max=S - 1)
+    write = (active & (lengths < S))[:, None, None]
+    k_cache[rows, row] = torch.where(write, k[:, 0].to(k_cache.dtype),
+                                     k_cache[rows, row])
+    v_cache[rows, row] = torch.where(write, v[:, 0].to(v_cache.dtype),
+                                     v_cache[rows, row])
+
+    out = _attend_cached(q, k_cache, v_cache, lengths + 1,
+                         c.head_dim ** -0.5)
+    x = x + _attn_out(out, layer)
+    return x + _mlp(rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer)
+
+
+def make_decode_step(params: Params, config: LlamaConfig,
+                     head: Optional[torch.Tensor] = None):
+    """Build the one-token-for-all-slots decode step.
+
+    step(cache, tokens (B,) int32, active (B,) bool) →
+        (cache, logits (B, vocab) f32)
+    Inactive slots keep their cache rows and length. ``head``: the f32
+    output head, made once by the caller (default: made here)."""
+    c = config
+    dev = params["embed"].device
+    cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
+                                device=dev)
+    head = head_f32(params, c) if head is None else head
+
+    def step(cache: Cache, tokens, active):
+        lengths = cache["length"]
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        active = torch.as_tensor(active, device=dev)
+        x = params["embed"].to(c.dtype)[tokens][:, None, :]      # (B,1,E)
+        for i in range(c.n_layers):
+            x = _decode_block(x, layer_params(params, i), cache["k"][i],
+                              cache["v"][i], lengths, active, cos, sin, c)
+        x = rmsnorm(x, params["final_norm"], c.norm_eps)
+        logits = x[:, 0].float() @ head
+        lengths += active.to(lengths.dtype)      # only active slots advance
+        return cache, logits
+
+    return step
+
+
+def make_prefill(params: Params, config: LlamaConfig,
+                 head: Optional[torch.Tensor] = None):
+    """Build the single-slot prefill.
+
+    prefill(cache, tokens (1, P) padded, true_len, slot) →
+        (cache, last_logits (vocab,) f32)
+    Writes the slot's rows [0, P) in place, zero past ``true_len``."""
+    c = config
+    dev = params["embed"].device
+    cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
+                                device=dev)
+    head = head_f32(params, c) if head is None else head
+
+    def prefill(cache: Cache, tokens, true_len: int, slot: int):
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        pad_len = tokens.shape[1]
+        if pad_len > cache["k"].shape[2]:
+            raise ValueError(f"padded prompt {pad_len} exceeds the cache's "
+                             f"{cache['k'].shape[2]} rows")
+        x = params["embed"].to(c.dtype)[tokens]               # (1, P, E)
+        pos = torch.arange(pad_len, device=dev)
+        valid = (pos < true_len)[None, :, None, None]
+        positions = pos.clamp(max=cos.shape[0] - 1)[None, :]
+        for i in range(c.n_layers):
+            layer = layer_params(params, i)
+            h = rmsnorm(x, layer["attn_norm"], c.norm_eps)
+            q, k, v = _qkv(h, layer)
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+            out = mha_reference(q, k, v, causal=True)
+            x = x + _attn_out(out, layer)
+            x = x + _mlp(rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer)
+            kc, vc = cache["k"][i], cache["v"][i]     # (slots, S, KV, D)
+            kc[slot, :pad_len] = torch.where(valid, k, torch.zeros_like(k))[0]
+            vc[slot, :pad_len] = torch.where(valid, v, torch.zeros_like(v))[0]
+        x = rmsnorm(x, params["final_norm"], c.norm_eps)
+        last = x[0, max(int(true_len) - 1, 0)]
+        logits = last.float() @ head
+        cache["length"][slot] = int(true_len)
+        return cache, logits
+
+    return prefill
+
+
+def pad_to_bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return ((n + 511) // 512) * 512

@@ -45,6 +45,10 @@ def pytest_configure(config):
         "markers",
         "slow: excluded from the tier-1 gate (-m 'not slow'); run "
         "explicitly, e.g. the 500k queued-task envelope")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU with nvcc (the ray_tpu_torch kernels); "
+        "skips with a reason elsewhere")
 
 
 @pytest.fixture(autouse=True, scope="session")

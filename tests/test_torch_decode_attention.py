@@ -1,0 +1,183 @@
+"""The decode-attention ops of ray_tpu_torch (ports of TPU kernels K3,
+paged decode, and K4, slot decode) on the CPU, where their wrappers take
+the plain versions: held against the JAX Pallas kernels run in interpret
+mode, as the JAX package's own tests run them, and against the JAX gather
+oracle. The CUDA kernels themselves are held against the plain versions on
+a card by tests/test_torch_cuda_kernels.py.
+
+Tolerance: 1e-5 absolute and relative in f32 — the same softmax computed
+in one pass (plain) and as an online recurrence over blocks (kernel),
+whose sums differ in order only. The bf16 case holds the port's plain
+version to the JAX oracle on identical bf16 inputs to one bf16 rounding
+of the output (2^-7 relative), since both work in f32 and round once.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops.pallas import decode_attention as jdec
+from ray_tpu.ops.pallas import paged_decode_attention as jpaged
+from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import decode_attention as tdec
+from ray_tpu_torch.ops import paged_decode_attention as tpaged
+
+B, H, KV, D, NB, BS, MBS = 6, 4, 2, 16, 11, 8, 3
+# lengths: empty slot, 1, one block, a non-multiple, full, stale (> MBS*bs)
+PAGED_LENGTHS = [0, 1, BS, 13, MBS * BS, MBS * BS + 1]
+# non-contiguous, out-of-order tables; the empty slot's row is the null
+# block, and rows past each prefix name block 0
+TABLES = [[0, 0, 0], [7, 0, 0], [2, 9, 0], [10, 1, 0], [5, 3, 8],
+          [4, 6, 1]]
+
+
+def _paged_inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    kp = rng.standard_normal((NB, BS, KV, D)).astype(np.float32)
+    vp = rng.standard_normal((NB, BS, KV, D)).astype(np.float32)
+    return (q, kp, vp, np.asarray(TABLES, np.int32),
+            np.asarray(PAGED_LENGTHS, np.int32))
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def test_paged_plain_matches_jax_kernel_interpret():
+    q, kp, vp, tables, lengths = _paged_inputs()
+    want = jpaged.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(lengths), scale=D ** -0.5,
+        interpret=True)
+    got = tpaged.paged_decode_attention(*_torch(q, kp, vp, tables, lengths),
+                                        scale=D ** -0.5)
+    assert got.shape == (B, 1, H, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    assert np.all(got.numpy()[0] == 0.0)     # length 0 → 0 (l_safe)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_paged_plain_matches_jax_reference(dtype):
+    """Against the JAX gather oracle, for every slot of nonzero length
+    (the oracle averages V over an empty slot; both kernels give 0)."""
+    q, kp, vp, tables, lengths = _paged_inputs(1)
+    jd, td = ((jnp.float32, torch.float32) if dtype == "f32"
+              else (jnp.bfloat16, torch.bfloat16))
+    want = jpaged.paged_attention_reference(
+        jnp.asarray(q, jd), jnp.asarray(kp, jd), jnp.asarray(vp, jd),
+        jnp.asarray(tables), jnp.asarray(lengths), scale=D ** -0.5)
+    qt, kt, vt, tt, lt = _torch(q, kp, vp, tables, lengths)
+    got = tpaged.paged_attention_reference(
+        qt.to(td), kt.to(td), vt.to(td), tt, lt, scale=D ** -0.5)
+    assert got.dtype == td
+    want = np.asarray(want.astype(jnp.float32))[1:]
+    got = got.float().numpy()[1:]
+    tol = 1e-5 if dtype == "f32" else 2.0 ** -7
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("group", [1, 2])
+def test_slot_plain_matches_jax_kernel_interpret(group):
+    S, block_s = 32, 16
+    h = KV * group
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((5, 1, h, D)).astype(np.float32)
+    kc = rng.standard_normal((5, S, KV, D)).astype(np.float32)
+    vc = rng.standard_normal((5, S, KV, D)).astype(np.float32)
+    # empty, 1, a non-multiple, full, stale (S + 1)
+    lengths = np.asarray([0, 1, 21, S, S + 1], np.int32)
+    want = jdec.decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(lengths), scale=D ** -0.5, block_s=block_s,
+        interpret=True)
+    got = tdec.decode_attention(*_torch(q, kc, vc, lengths),
+                                scale=D ** -0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    assert np.all(got.numpy()[0] == 0.0)
+
+
+def test_slot_plain_equals_paged_plain_on_same_rows():
+    """A contiguous cache is a paged pool whose table is the identity:
+    the two plain versions agree."""
+    q, kp, vp, _, _ = _paged_inputs(3)
+    lengths = np.asarray([1, 5, 8, 17, 24, 0], np.int32)
+    # slot b owns blocks [3b/2 ...]: build both layouts from one pool
+    tables = np.arange(B * MBS, dtype=np.int32).reshape(B, MBS) % NB
+    kc = kp[tables].reshape(B, MBS * BS, KV, D)
+    vc = vp[tables].reshape(B, MBS * BS, KV, D)
+    a = tpaged.paged_attention_reference(*_torch(q, kp, vp, tables, lengths),
+                                         scale=0.3)
+    b = tdec.decode_attention_reference(*_torch(q, kc, vc, lengths),
+                                        scale=0.3)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    q, kp, vp, tables, lengths = _paged_inputs()
+    before = (tpaged.paged_decode_attention.launches,
+              tdec.decode_attention.launches)
+    tpaged.paged_decode_attention(*_torch(q, kp, vp, tables, lengths),
+                                  scale=1.0)
+    kc = torch.zeros(B, 8, KV, D)
+    tdec.decode_attention(torch.from_numpy(q), kc, kc,
+                          torch.from_numpy(lengths), scale=1.0)
+    assert (tpaged.paged_decode_attention.launches,
+            tdec.decode_attention.launches) == before
+
+
+def test_wrappers_refuse_other_devices():
+    q = torch.zeros(1, 1, 2, 16, device="meta")
+    kv = torch.zeros(1, 4, 1, 16, device="meta")
+    n = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdec.decode_attention(q, kv, kv, n, scale=1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tpaged.paged_decode_attention(
+            q, kv, kv, torch.zeros(1, 1, dtype=torch.int32, device="meta"),
+            n, scale=1.0)
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("fp16", TypeError), ("mixed", TypeError), ("strided", ValueError),
+    ("int64_index", TypeError), ("head_bytes", ValueError)])
+def test_kernel_operand_checks(case, exc):
+    q = torch.zeros(2, 1, 4, 16)
+    k = torch.zeros(2, 8, 2, 16)
+    lens = torch.zeros(2, dtype=torch.int32)
+    D = 16
+    if case == "fp16":
+        q, k = q.half(), k.half()
+    elif case == "mixed":
+        k = k.bfloat16()
+    elif case == "strided":
+        k = torch.zeros(2, 8, 2, 32)[..., ::2]
+    elif case == "int64_index":
+        lens = lens.long()
+    elif case == "head_bytes":
+        q, k, D = q[..., :2].contiguous(), k[..., :2].contiguous(), 2
+    with pytest.raises(exc):
+        tdec.check_operands(q, k, k, (lens,), D)
+    assert tdec.check_operands(torch.zeros(2, 1, 4, 16),
+                               torch.zeros(2, 8, 2, 16),
+                               torch.zeros(2, 8, 2, 16),
+                               (torch.zeros(2, dtype=torch.int32),), 16) == 0
+
+
+def test_build_reports_compiler_failure(tmp_path, monkeypatch):
+    """The build runs nvcc per stale source and raises with its output;
+    no partial library is left behind."""
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no sm_90a here'\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    assert "decode_attention" in _build.sources()
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        _build.build(["decode_attention"])
+    assert list((tmp_path / "build").iterdir()) == []
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.load("decode_attention")

@@ -1,0 +1,182 @@
+"""The port's LLMEngine (device="cpu") against ray_tpu's LLMEngine on the
+same converted ``debug`` weights: greedy outputs must be token-identical
+in both cache modes, with mid-stream admission (6 requests on 3 slots)
+and under a pool small enough to force recompute preemption. Also the
+engine surface: unported options raise NotImplementedError, and the
+default device is the card."""
+
+import threading
+import time
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.models import llama as jllama
+from ray_tpu.serve.llm import LLMEngine as JaxEngine
+from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
+
+REQUESTS = [([5, 17, 99, 3, 42], 10), (list(range(2, 18)), 12),
+            ([200, 1], 6), (list(range(30, 51)), 9), ([9] * 7, 14),
+            ([1, 2, 3], 8)]
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return jllama.init_params(jllama.CONFIGS["debug"], jax.random.key(0))
+
+
+@pytest.fixture(scope="module")
+def tparams(jparams):
+    from ray_tpu_torch.models.convert import params_from_jax
+
+    return params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+
+
+def _submit_all(eng, requests, timeout_s=120):
+    rids = [eng.submit(p, max_tokens=n) for p, n in requests]
+    outs = {i: [] for i in range(len(rids))}
+    deadline = time.monotonic() + timeout_s
+    pending = set(range(len(rids)))
+    while pending:
+        assert time.monotonic() < deadline, "engine did not finish"
+        for i in list(pending):
+            st = eng.poll(rids[i])
+            outs[i] += st["chunks"]
+            if st["done"]:
+                pending.discard(i)
+        time.sleep(0.002)
+    return outs
+
+
+def _threads(eng, n, prompt_of, max_tokens):
+    outs = {}
+
+    def run(i):
+        outs[i] = eng.generate(prompt_of(i), max_tokens=max_tokens,
+                               timeout_s=120)
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=150)
+        assert not t.is_alive()
+    return outs
+
+
+def _both(jparams, tparams, fn, **kw):
+    res = []
+    for eng in (JaxEngine(model="debug", params=jparams, **kw),
+                LLMEngine(model="debug", params=tparams, device="cpu",
+                          **kw)):
+        try:
+            res.append((fn(eng), eng.stats()))
+        finally:
+            eng.shutdown()
+    return res
+
+
+@pytest.mark.parametrize("kv_cache", ["paged", "slot"])
+def test_six_requests_on_three_slots_match_jax(jparams, tparams, kv_cache):
+    (want, _), (got, st) = _both(
+        jparams, tparams, lambda e: _submit_all(e, REQUESTS),
+        num_slots=3, max_seq=128, kv_cache=kv_cache, kv_block_size=16)
+    assert [len(got[i]) for i in range(6)] == [n for _, n in REQUESTS]
+    assert got == want
+    assert st["kv_cache"] == kv_cache and st["device"] == "cpu"
+
+
+def test_preemption_matches_jax(jparams, tparams):
+    (want, jst), (got, st) = _both(
+        jparams, tparams,
+        lambda e: _threads(e, 3, lambda i: [2 + i, 9, 4], 40),
+        num_slots=3, max_seq=128, kv_cache="paged", kv_block_size=16,
+        kv_pool_tokens=96)
+    assert sorted(got) == [0, 1, 2]
+    assert all(len(v) == 40 for v in got.values())
+    assert st["preemptions"] >= 1 and jst["preemptions"] >= 1
+    assert got == want
+
+
+def test_preempted_output_equals_unpressured(tparams):
+    eng = LLMEngine(model="debug", params=tparams, device="cpu",
+                    num_slots=1, max_seq=128, kv_block_size=16)
+    try:
+        want = eng.generate([5, 6, 7], max_tokens=40, timeout_s=60)
+    finally:
+        eng.shutdown()
+    eng = LLMEngine(model="debug", params=tparams, device="cpu",
+                    num_slots=3, max_seq=128, kv_block_size=16,
+                    kv_pool_tokens=96)
+    try:
+        outs = _threads(eng, 3, lambda i: [5, 6, 7], 40)
+        assert eng.stats()["preemptions"] >= 1
+        eng._alloc.check_invariants()
+    finally:
+        eng.shutdown()
+    assert all(outs[i] == want for i in range(3))
+
+
+def test_oversize_prompt_fails_cleanly(tparams):
+    eng = LLMEngine(model="debug", params=tparams, device="cpu",
+                    num_slots=2, max_seq=128, kv_block_size=16,
+                    kv_pool_tokens=64)
+    try:
+        with pytest.raises(RuntimeError, match="exceeds KV pool"):
+            eng.generate(list(range(1, 100)), max_tokens=8, timeout_s=60)
+        assert len(eng.generate([4, 5], max_tokens=4, timeout_s=60)) == 4
+        with pytest.raises(ValueError, match="out of vocab"):
+            eng.generate([256], max_tokens=2)
+        with pytest.raises(ValueError, match="exceeds max_seq"):
+            eng.generate([1] * 100, max_tokens=40)
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("kw,what", [
+    ({"prefix_cache": "radix"}, "prefix_cache"),
+    ({"prefix_cache_size": 4}, "prefix_cache"),
+    ({"prefill_chunk": 32}, "prefill_chunk"),
+    ({"speculation": "ngram", "kv_cache": "slot"}, "speculation")])
+def test_unported_options_raise(kw, what):
+    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+        LLMEngine(model="debug", device="cpu", **kw)
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device works")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMEngine(model="debug")
+
+
+def test_server_surface(tparams):
+    srv = LLMServer(model="debug", params=tparams, device="cpu",
+                    num_slots=2, max_seq=128, kv_block_size=16)
+    try:
+        out = srv([5, 17, 99], max_tokens=5)
+        assert len(out) == 5
+        rid = srv.submit([5, 17, 99], max_tokens=5)
+        got = []
+        for _ in range(5000):
+            st = srv.poll(rid)
+            got += st["chunks"]
+            if st["done"]:
+                break
+            time.sleep(0.002)
+        assert got == out
+        assert srv.poll(rid) == {"chunks": [], "done": True}
+        assert not srv.cancel(rid)
+        rid = srv.submit([1, 2], max_tokens=100)
+        assert srv.cancel(rid)
+        assert srv.stats()["kv_cache"] == "paged"
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            srv({"prompt": [1, 2]})
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            next(iter(srv.stream([1, 2])))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            srv.engine.submit_prefilled([1], None, None, None)
+    finally:
+        srv.engine.shutdown()
