@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: the quickest proof that
-the port builds, agrees with itself on the CPU, and serves Llama-3-8B.
+the port builds, agrees with itself on the CPU, serves Llama-3-8B and
+trains the 1B Llama.
 
     python3 chip_smoke.py
 
@@ -20,7 +21,22 @@ Phases (any failure exits non-zero, and no result line is printed):
   5. the 8b configuration served on the card through LLMEngine, paged then
      slot, from random weights: every output complete, logits finite, and
      each kernel launched once per layer per decode step;
-  6. the kernels line, then the result line.
+  6. flash attention: the forward (K1) and the backward kernels (K2a dq,
+     K2b dk/dv) against their plain versions, in bf16 and f32, at the
+     1b_bench shapes (B=8, Hq=32, Hkv=8, S=2048, D=64, causal), at D=128,
+     and at a ragged S=1000 with group 1, non-causal, row by row under
+     the tolerance ops/flash_attention.py states; times of kernel,
+     plain version and library yardstick (scaled_dot_product_attention
+     and its autograd backward, timed here only), and the bound; then the
+     training path's bf16 attention (flash_attention_with_lse and its
+     autograd backward) against the plain versions on the same tensors;
+  7. the f32 debug model trained 5 steps on the card and on the CPU from
+     the same weights and batch: same losses and parameters;
+  8. 1b_bench (the JAX package's headline training configuration) trained
+     at full width and depth through ray_tpu_torch.bench.run: finite,
+     falling loss, and each flash kernel launched exactly as the path
+     needs;
+  9. the kernels line, then the result line.
 
 Needs one CUDA card, nvcc, and about 40 GB of device memory; no network.
 """
@@ -305,6 +321,300 @@ def serve_check(params, cfg, kv_cache, prompts, max_tokens, num_slots=4,
                                               for i in range(len(prompts))]}
 
 
+# ------------------------------------------------------------- phase 6
+
+FLASH_CASES = [  # name, B, Hq, Hkv, S (= Sq = Skv), D, causal
+    ("1b_bench", 8, 32, 8, 2048, 64, True),   # the training path's shapes
+    ("d128", 2, 32, 8, 2048, 128, True),
+    ("ragged", 2, 8, 8, 1000, 64, False),
+]
+
+
+def flash_bound_ms(kernel, B, Hq, Hkv, S, D, causal, itemsize, dtype_name):
+    """Least time of one call: its products over the peak rate (only the
+    unmasked query-key pairs), or each operand read and each result
+    written once over 3.35 TB/s. Products: K1 Q·Kᵀ and P·V; K2a Q·Kᵀ,
+    dO·Vᵀ and dS·K; K2b those two and Pᵀ·dO, dSᵀ·Q."""
+    pairs = B * Hq * (S * (S + 1) // 2 if causal else S * S)
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
+    ops = 2 * D * pairs * products
+    qsize, kvsize, rows = B * Hq * S * D, B * Hkv * S * D, 4 * B * Hq * S
+    nbytes = {"fwd": itemsize * (2 * qsize + 2 * kvsize) + rows,
+              "dq": itemsize * (3 * qsize + 2 * kvsize) + 2 * rows,
+              "dkv": itemsize * (2 * qsize + 4 * kvsize) + 2 * rows}[kernel]
+    t_ops = ops / PEAK_OPS[dtype_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def top_kernel(fn):
+    """Name of the CUDA kernel that takes most device time in one call of
+    ``fn`` (which backend a library call chose)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA]
+    return max(events, key=lambda e: e.device_time_total).key[:120] \
+        if events else None
+
+
+def flash_inputs(device, dt, B, Hq, Hkv, S, D, seed=0):
+    """q, k, v and a cotangent dout from a seed, in the (B, H, S, D)
+    layout of the flash kernels."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(dt)
+
+    return rand(B, Hq, S, D), rand(B, Hkv, S, D), rand(B, Hkv, S, D), \
+        rand(B, Hq, S, D)
+
+
+def flash_compare(q, k, v, do, causal):
+    """K1, and K2a with K2b through flash_attention_bwd, against their
+    plain versions on the same inputs (both backward versions take the
+    plain forward's lse and delta). Returns each result's mismatch
+    (ops.flash_attention.mismatch: row by row under the stated tolerance)
+    and the backward's operands."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    kw = dict(causal=causal, scale=q.shape[-1] ** -0.5)
+    got_out, got_lse = fa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (do.float() * want_out.float()).sum(-1)
+    bwd_args = (q, k, v, want_lse, delta, do)
+    got = fa.flash_attention_bwd(*bwd_args, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(*bwd_args, **kw)
+    errs = {}
+    for part, g, w in zip(("out", "lse", "dq", "dk", "dv"),
+                          (got_out, got_lse) + tuple(got),
+                          (want_out, want_lse) + tuple(want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, part
+        errs[part] = fa.mismatch(g, w)
+    return errs, bwd_args
+
+
+def flash_grad_check(device, B=2, Hq=32, Hkv=8, S=2048, D=64, seed=1):
+    """The training path's bf16 attention, flash_attention_with_lse (its
+    autograd function runs K1, then delta = rowsum(dO·O) − dlse and K2a,
+    K2b), at one 1b_bench layer's head shapes with the batch cut to 2,
+    against the plain versions on the same tensors: out, lse and the
+    gradients of a loss that reads out and lse, per leaf, under the
+    kernels' tolerance."""
+    import torch
+
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    q, k, v = (rand(B, S, h, D).bfloat16().requires_grad_()
+               for h in (Hq, Hkv, Hkv))
+    w, wl = rand(B, S, Hq, D).bfloat16(), rand(B, Hq, S)
+    out, lse = attention.flash_attention_with_lse(q, k, v, causal=True)
+    loss = (out.float() * w.float()).sum() + (lse * wl).sum()
+    got = torch.autograd.grad(loss, (q, k, v))
+    torch.cuda.synchronize()
+    # the plain versions on the same tensors: the forward on q, k, v; the
+    # backward also on the card's out and lse, with delta formed here
+    qh, kh, vh, dout = (t.detach().transpose(1, 2).contiguous()
+                        for t in (q, k, v, w))
+    out, lse = out.detach().transpose(1, 2), lse.detach()
+    kw = dict(causal=True, scale=D ** -0.5)
+    out_r, lse_r = fa.flash_attention_fwd_reference(qh, kh, vh, **kw)
+    delta = (dout.float() * out.float()).sum(-1) - wl
+    want = fa.flash_attention_bwd_reference(qh, kh, vh, lse, delta, dout,
+                                            **kw)
+    res = {"out": fa.mismatch(out, out_r), "lse": fa.mismatch(lse, lse_r)}
+    for name, g, w_ in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w_.dtype and g.shape == w_.transpose(
+            1, 2).shape, name
+        res[name] = fa.mismatch(g, w_.transpose(1, 2))
+    return res
+
+
+def assert_within(what, errs):
+    bad = {part: e for part, e in errs.items() if not e["ok"]}
+    assert not bad, f"{what}: outside tolerance: {bad}"
+
+
+def flash_checks(device, cases=FLASH_CASES, iters=TIMED_ITERS, seed=0):
+    """K1, K2a and K2b against their plain versions in bf16 and f32, with
+    the times of kernel, plain version and the library yardstick
+    (F.scaled_dot_product_attention forward, and the autograd backward
+    through it, timed here only). Returns records keyed by case and
+    dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for name, B, Hq, Hkv, S, D, causal in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).split(".")[1]
+            q, k, v, do = flash_inputs(device, dt, B, Hq, Hkv, S, D, seed)
+            kw = dict(causal=causal, scale=D ** -0.5)
+            errs, bwd_args = flash_compare(q, k, v, do, causal)
+            assert_within(f"flash {name} {dname}", errs)
+
+            ql, kl, vl = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            lib_kw = dict(is_causal=causal, scale=D ** -0.5, enable_gqa=True)
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, **lib_kw)
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(q, k, v, **lib_kw)
+
+            def lib_bwd():
+                return torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                           retain_graph=True)
+
+            plain_iters = max(2, iters // 4)
+            times = {
+                "fwd": (time_ms([lambda: fa.flash_attention_fwd(
+                            q, k, v, **kw)], iters),
+                        time_ms([lambda: fa.flash_attention_fwd_reference(
+                            q, k, v, **kw)], plain_iters),
+                        time_ms([lib_fwd], iters)),
+                "dq": (time_ms([lambda: fa.bwd_dq(*bwd_args, **kw)], iters),
+                       time_ms([lambda: fa.bwd_dq_reference(
+                           *bwd_args, **kw)], plain_iters),
+                       None),
+                "dkv": (time_ms([lambda: fa.bwd_dkv(*bwd_args, **kw)],
+                                iters),
+                        time_ms([lambda: fa.bwd_dkv_reference(
+                            *bwd_args, **kw)], plain_iters),
+                        None),
+            }
+            lib_bwd_ms = time_ms([lib_bwd], iters)
+            rec = {"errors": errs, "tolerance": fa.TOLERANCE[dt],
+                   "shape": [B, Hq, Hkv, S, D, causal],
+                   "library_backend": {"fwd": top_kernel(lib_fwd),
+                                       "bwd": top_kernel(lib_bwd)},
+                   # one autograd backward gives dq, dk and dv together
+                   "library_bwd_ms": lib_bwd_ms}
+            for kern, (ms, plain, lib) in times.items():
+                b_ms, b_by = flash_bound_ms(kern, B, Hq, Hkv, S, D, causal,
+                                            q.element_size(), dname)
+                rec[kern] = {"ms": ms, "plain_ms": plain,
+                             "library_ms": lib if lib is not None
+                             else lib_bwd_ms,
+                             "bound_ms": b_ms, "bound_by": b_by}
+            out.setdefault(name, {})[dname] = rec
+            log(f"  {name:8s} {dname:8s} " + json.dumps(rec))
+            del q, k, v, do, ql, kl, vl, lib_out, bwd_args
+            torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------- phases 7-8
+
+def flash_launches():
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    return {"fwd": fa.flash_attention_fwd.launches,
+            "dq": fa.flash_attention_bwd.launches["dq"],
+            "dkv": fa.flash_attention_bwd.launches["dkv"]}
+
+
+def reset_flash_launches():
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = {"dq": 0, "dkv": 0}
+
+
+def debug_train_check(device, steps=5, seed=0):
+    """The f32 debug model trained ``steps`` steps on the card and on the
+    CPU from the same weights and numpy batch: losses to 1e-4 relative,
+    final parameters to 1e-4 absolute, and each flash kernel launched once
+    per layer per step on the card (no remat)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (OptimizerConfig,
+                                               init_train_state,
+                                               make_train_step, tree_leaves,
+                                               tree_map)
+
+    cfg = llama.CONFIGS["debug"]
+    params0 = llama.init_params(cfg, torch.Generator().manual_seed(seed),
+                                "cpu")
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+    res = {}
+    for dev in (device, torch.device("cpu")):
+        opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=2,
+                              decay_steps=20).make()
+        state = init_train_state(
+            lambda g: tree_map(lambda t: t.clone(), params0), opt, None, dev)
+        step = make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt)
+        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        reset_flash_launches()
+        losses = []
+        for _ in range(steps):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        res[dev.type] = (losses, [t.detach().cpu() for t in
+                                  tree_leaves(state.params)],
+                         flash_launches())
+    (card, card_p, launches), (cpu, cpu_p, _) = res["cuda"], res["cpu"]
+    want = {"fwd": steps * cfg.n_layers, "dq": steps * cfg.n_layers,
+            "dkv": steps * cfg.n_layers}
+    assert launches == want, (launches, want)
+    for a, b in zip(card, cpu):
+        assert abs(a - b) <= 1e-4 * abs(b), ("debug losses", card, cpu)
+    assert cpu[-1] < cpu[0], cpu
+    p_err = max((a - b).abs().max().item() for a, b in zip(card_p, cpu_p))
+    assert p_err <= 1e-4, f"debug params differ by {p_err}"
+    return {"steps": steps, "losses_card": card, "losses_cpu": cpu,
+            "max_loss_rel_err": max(abs(a - b) / abs(b)
+                                    for a, b in zip(card, cpu)),
+            "max_param_abs_err": p_err, "launches": launches}
+
+
+def train_1b_check(device, steps=5):
+    """1b_bench at full width and depth through ray_tpu_torch.bench.run:
+    finite losses, the last below the warm-up step's, and each flash
+    kernel launched exactly as the path needs (K1 twice per layer per
+    step, forward and remat recompute; K2a and K2b once)."""
+    import math
+
+    from ray_tpu_torch import bench
+
+    cfg = bench.CONFIGS["1b_bench"]
+    reset_flash_launches()
+    res = bench.run("1b_bench", batch=8, seq=2048, steps=steps,
+                    device=device)
+    launches = flash_launches()
+    n = steps + 1                                  # warm-up included
+    want = {"fwd": 2 * n * cfg.n_layers, "dq": n * cfg.n_layers,
+            "dkv": n * cfg.n_layers}
+    assert launches == want, (launches, want)
+    assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
+    assert res["losses"][-1] < res["losses"][0], res["losses"]
+    res["launches"] = launches
+    return res
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -382,8 +692,31 @@ def main() -> int:
     log(f"[5] 8b paged and slot outputs identical: {same}")
     report["serve_paged_equals_slot"] = same
     report["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
 
-    # 6. the kernels line and the result line
+    # 6. flash kernels against their plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    log("[6] flash kernels vs plain versions (row by row: "
+        "||got_r - want_r|| <= rtol ||want_r|| + atol rms_r)")
+    report["flash"] = flash_checks(device)
+    report["flash_grad"] = flash_grad_check(device)
+    log("[6] bf16 training-path attention and gradients vs the plain "
+        "versions: " + json.dumps(report["flash_grad"]))
+    assert_within("flash_attention_with_lse bf16 gradients",
+                  report["flash_grad"])
+    torch.cuda.empty_cache()
+
+    # 7. debug training: card == CPU
+    report["debug_train"] = debug_train_check(device)
+    log("[7] debug train: " + json.dumps(report["debug_train"]))
+
+    # 8. 1b_bench trained on the card: the training path's run
+    report["train"] = train_1b_check(device)
+    log("[8] 1b_bench train: " + json.dumps(report["train"]))
+
+    # 9. the kernels line and the result line
     k = report["kernels"]
     lines = []
     for name, kind_, src_kernel, replaces in (
@@ -404,6 +737,27 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "dtype": "bfloat16",
             "float32": k[kind_]["float32"]})
+    fl = report["flash"]["1b_bench"]
+    for name, kern, replaces in (
+            ("flash_fwd_kernel", "fwd",
+             "ray_tpu/ops/pallas/flash_attention.py:90"),
+            ("flash_bwd_dq_kernel", "dq",
+             "ray_tpu/ops/pallas/flash_attention.py:273"),
+            ("flash_bwd_dkv_kernel", "dkv",
+             "ray_tpu/ops/pallas/flash_attention.py:363")):
+        parts = {"fwd": ("out", "lse"), "dq": ("dq",),
+                 "dkv": ("dk", "dv")}[kern]
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": report["train"]["launches"][kern],
+            "max_abs_err": max(fl["bfloat16"]["errors"][p]["max_abs_err"]
+                               for p in parts),
+            **{key: fl["bfloat16"][kern][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "dtype": "bfloat16", "shape": fl["bfloat16"]["shape"],
+            "float32": fl["float32"][kern]})
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as f:

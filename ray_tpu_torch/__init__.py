@@ -16,7 +16,7 @@ import torch
 
 __version__ = "0.1.0"
 
-_SUBMODULES = {"ops", "models", "serve"}
+_SUBMODULES = {"ops", "models", "serve", "bench"}
 
 
 def resolve_device(device=None) -> torch.device:

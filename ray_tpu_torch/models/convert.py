@@ -31,3 +31,41 @@ def params_from_jax(tree: Any, device=None) -> Any:
         return type(tree)(params_from_jax(v, device) for v in tree)
     t = _tensor(tree)
     return t if device is None else t.to(device)
+
+
+def train_state_from_jax(state: Any, device=None):
+    """A JAX ``TrainState`` (``ray_tpu/models/training.py``: step, params,
+    and the optax state of ``OptimizerConfig.make()``) → the port's
+    :class:`~ray_tpu_torch.models.training.TrainState`, so that a run
+    trained in JAX carries on here. The optax state is
+    ``(clip state, (ScaleByAdamState(count, mu, nu), weight-decay state,
+    ScaleByScheduleState(count)))``; its parts are found by their fields,
+    so neither optax nor jax is imported."""
+    from ray_tpu_torch.models.training import (AdamWState, TrainState,
+                                               tree_leaves)
+
+    adam = schedule = None
+    stack = [state.opt_state]
+    while stack:
+        node = stack.pop()
+        fields = getattr(node, "_fields", ())          # optax NamedTuples
+        if {"count", "mu", "nu"} <= set(fields):
+            adam = node
+        elif tuple(fields) == ("count",):
+            schedule = node
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+    if adam is None or schedule is None:
+        raise ValueError("opt_state holds no Adam and schedule state: not "
+                         "the state of OptimizerConfig.make()")
+    params = params_from_jax(state.params, device)
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    return TrainState(
+        step=int(np.asarray(state.step)), params=params,
+        opt_state=AdamWState(
+            adam_count=int(np.asarray(adam.count)),
+            mu=params_from_jax(adam.mu, device),
+            nu=params_from_jax(adam.nu, device),
+            schedule_count=int(np.asarray(schedule.count))))
+

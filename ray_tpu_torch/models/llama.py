@@ -4,17 +4,25 @@
 Parameters are a plain dict of tensors in the JAX package's layout — layer
 weights stacked on a leading ``layers`` axis (``wq`` is (L, E, H, D), …) —
 so weights converted from the JAX pytree (:mod:`ray_tpu_torch.models.convert`)
-load 1:1. ``forward`` and ``loss_fn`` belong to the training path and are not
-ported yet; serving runs its own prefill and decode step
+load 1:1. ``forward`` and ``loss_fn`` are the training path: a Python loop
+over the layers (the counterpart of ``lax.scan``), each layer under
+``torch.utils.checkpoint`` when ``remat`` is set, attention through
+:func:`ray_tpu_torch.ops.attention.flash_attention` (kernels K1, K2a, K2b on
+the card). Serving runs its own prefill and decode step
 (:mod:`ray_tpu_torch.models.paged_cache`, :mod:`ray_tpu_torch.models.decoding`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
+
+from ray_tpu_torch.ops.attention import flash_attention
+from ray_tpu_torch.ops.norms import rmsnorm
+from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 Params = Dict[str, Any]
 
@@ -33,12 +41,25 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16   # activation / weight dtype
-    # remat, remat_policy, attn_block and sp_axis of the JAX config shape
-    # training only, and arrive with the training slice
+    remat: bool = True              # checkpoint each layer
+    # "nothing" (recompute the whole layer in the backward; the only policy
+    # ported) or "dots" (save matmul outputs; ROADMAP item 16)
+    remat_policy: str = "nothing"
+    attn_block: int = 512           # tile of the plain flash backward
+    # Ring/sequence-parallel attention (ROADMAP item 13); None here.
+    sp_axis: Optional[str] = None
 
     @property
     def q_dim(self) -> int:
         return self.n_heads * self.head_dim
+
+    def flops_per_token(self, seq: Optional[int] = None) -> float:
+        """Training FLOPs/token: 6·N (fwd+bwd matmuls) + causal attention
+        (per layer fwd: QKᵀ and P·V are 4·S·d, halved by causality → 2·S·d;
+        ×3 for fwd+bwd → 6·L·S·d). The single source of truth for MFU."""
+        seq = self.max_seq if seq is None else seq
+        return (6.0 * self.num_params()
+                + 6.0 * self.n_layers * seq * self.q_dim)
 
     def num_params(self) -> int:
         p = self.vocab_size * self.hidden                        # embed
@@ -59,7 +80,7 @@ class LlamaConfig:
 CONFIGS: Dict[str, LlamaConfig] = {
     "debug": LlamaConfig(vocab_size=256, hidden=64, n_layers=2, n_heads=4,
                          n_kv_heads=2, head_dim=16, mlp_dim=128, max_seq=128,
-                         dtype=torch.float32),
+                         dtype=torch.float32, remat=False),
     "tiny": LlamaConfig(vocab_size=32000, hidden=512, n_layers=4, n_heads=8,
                         n_kv_heads=4, head_dim=64, mlp_dim=1408, max_seq=2048),
     "1b": LlamaConfig(vocab_size=128256, hidden=2048, n_layers=16, n_heads=32,
@@ -163,3 +184,118 @@ def head_f32(params: Params, config: LlamaConfig) -> torch.Tensor:
     head = (params["embed"].T if config.tie_embeddings
             else params["lm_head"])
     return head.float()
+
+
+# ------------------------------------------------------------ training path
+
+class _HeadF32(torch.autograd.Function):
+    """logits = x @ head with bf16 operands and f32 results on the card
+    (``torch.mm(..., out_dtype=torch.float32)``, which has no autograd
+    formula of its own). The backward rounds the f32 cotangent to bf16 and
+    takes both products in bf16 with f32 accumulation, as the TPU does for
+    the f32 × bf16 products of the JAX transpose at default precision."""
+
+    @staticmethod
+    def forward(ctx, x, head):
+        ctx.save_for_backward(x, head)
+        return torch.mm(x, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ head.T, x.T @ g
+
+
+def _head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """(B, S, E) × (E, vocab) → f32 logits: the JAX package's bf16 operands
+    with f32 accumulation (``llama.py:244``). On the CPU, and for f32
+    models, the operands are taken in f32, which gives the same products
+    (a bf16 value is exact in f32)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.bfloat16 and x.device.type == "cuda":
+        logits = _HeadF32.apply(x2, head.to(x.dtype))
+    else:
+        logits = x2.float() @ head.float()
+    return logits.reshape(*lead, -1)
+
+
+def _attention(x, layer, cos, sin, config: LlamaConfig):
+    q, k, v = _qkv(x, layer)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = flash_attention(q, k, v, causal=True, block=config.attn_block)
+    return _attn_out(out, layer)
+
+
+def make_block(config: LlamaConfig, cos, sin):
+    """The transformer block ``block(x, layer) -> x`` (the JAX package's
+    scanned block). With ``remat`` the layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
+    and the backward recomputes the layer, flash forward included — the
+    ``nothing_saveable`` policy."""
+    c = config
+    if c.sp_axis is not None:
+        raise NotImplementedError(
+            "sp_axis (ring attention) is not ported: ROADMAP item 13")
+    if c.remat and c.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' is not ported: ROADMAP item 16")
+
+    def block(x, layer):
+        x = x + _attention(rmsnorm(x, layer["attn_norm"], c.norm_eps), layer,
+                           cos, sin, c)
+        return x + _mlp(rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer)
+
+    if not c.remat:
+        return block
+
+    def remat_block(x, layer):
+        return torch.utils.checkpoint.checkpoint(block, x, layer,
+                                                 use_reentrant=False)
+
+    return remat_block
+
+
+def forward(params: Params, tokens: torch.Tensor,
+            config: LlamaConfig) -> torch.Tensor:
+    """tokens (B, S) integer → logits (B, S, vocab) float32."""
+    c = config
+    tokens = tokens.long()
+    x = params["embed"].to(c.dtype)[tokens]
+    cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
+                                device=x.device)
+    block = make_block(c, cos, sin)
+    # One unbind per stacked weight, as scan slices its xs: its backward
+    # stacks the layers' gradients once, where indexing each layer would
+    # scatter every layer's gradient into a zeroed full-size copy and sum
+    # n_layers of them.
+    names = list(params["layers"])
+    for ws in zip(*(params["layers"][n].unbind(0) for n in names)):
+        x = block(x, dict(zip(names, ws)))
+    x = rmsnorm(x, params["final_norm"], c.norm_eps)
+    head = params["embed"].T if c.tie_embeddings else params["lm_head"]
+    return _head_logits(x, head)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            config: LlamaConfig):
+    """Next-token cross entropy.
+
+    ``batch``: {"tokens": (B, S) integer, optional "mask": (B, S) 0/1 —
+    mask[i] gates the loss at step i, predicting token i+1; the last
+    position's mask is unused}. Returns (loss, {"loss", "accuracy",
+    "tokens"})."""
+    tokens = batch["tokens"].long()
+    logits = forward(params, tokens, config)[:, :-1]
+    targets = tokens[:, 1:]
+    mask = batch.get("mask")
+    mask = (torch.ones_like(targets, dtype=torch.float32) if mask is None
+            else mask[:, :-1].float())
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    denom = mask.sum().clamp(min=1.0)
+    loss = (nll * mask).sum() / denom
+    acc = ((logits.argmax(-1) == targets) * mask).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}

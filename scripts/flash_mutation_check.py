@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Do the flash-attention checks of chip_smoke.py catch a wrong kernel?
+
+    python3 scripts/flash_mutation_check.py
+
+Copies ``ray_tpu_torch`` into a temporary directory once unchanged and
+once per mutant in ``MUTANTS``, each planting one fault in the bf16 path
+of ``csrc/flash_attention.cu`` (the path training runs), builds every copy
+with nvcc (all started together), and runs each copy, one process at a
+time, through chip_smoke.py's two bf16 checks:
+
+- ``flash_compare``: K1, K2a and K2b against their plain versions at the
+  1b_bench shapes (B=8, Hq=32, Hkv=8, S=2048, D=64, causal), the inputs
+  of phase 6;
+- ``flash_grad_check``: the training path's attention gradients against
+  autograd through the plain forward.
+
+Prints one JSON object, each result's mismatch per copy, and exits 1
+unless the unchanged copy passes both checks and every mutant fails one.
+Needs one CUDA card and nvcc; writes only under its temporary directory.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join("ray_tpu_torch", "csrc", "flash_attention.cu")
+
+MUTANTS = {  # name: (text of flash_attention.cu, its replacement)
+    # K1 drops the diagonal kv tile for every q tile from row 1024 on
+    "fwd_skips_diagonal_tile_past_row_1024": (
+        "l[2] = {0.f, 0.f};\n"
+        "  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;",
+        "l[2] = {0.f, 0.f};\n"
+        "  const int kv_end = (causal ? min(Skv, q0 + BQ) : Skv)\n"
+        "                     - (q0 >= 1024 ? BKV : 0);"),
+    # K2a zeroes dS of one warp's 16 rows in the last kv tile of its loop
+    "dq_zeroes_ds_of_warp_3_in_last_tile": (
+        "        s[n][e] = p * (dp[n][e] - delta_r[i]);",
+        "        s[n][e] = ((threadIdx.x >> 5) == 3 && k0 + BKV >= kv_end)\n"
+        "                      ? 0.f : p * (dp[n][e] - delta_r[i]);"),
+    # K2b skips the last q tile of the last member of each GQA group
+    "dkv_skips_last_q_tile_of_one_group_member": (
+        "    for (int qt = q_first; qt < nqt; ++qt) {\n"
+        "      const int q0 = qt * BQ;\n"
+        "      __syncthreads();\n"
+        "      const size_t qoff = (bhq * Sq + q0) * D;\n"
+        "      stage_bf16",
+        "    for (int qt = q_first; qt < nqt - (gi == group - 1); ++qt) {\n"
+        "      const int q0 = qt * BQ;\n"
+        "      __syncthreads();\n"
+        "      const size_t qoff = (bhq * Sq + q0) * D;\n"
+        "      stage_bf16"),
+}
+
+
+def child(root: str) -> None:
+    """Run both checks on the copy of ray_tpu_torch under ``root``."""
+    sys.path[:0] = [root, HERE]
+    import torch
+
+    import chip_smoke
+    import ray_tpu_torch
+
+    assert ray_tpu_torch.__file__.startswith(root), ray_tpu_torch.__file__
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs, _ = chip_smoke.flash_compare(
+        *chip_smoke.flash_inputs(device, torch.bfloat16, 8, 32, 8, 2048, 64),
+        causal=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"kernels": errs,
+                      "grads": chip_smoke.flash_grad_check(device)}))
+
+
+def main() -> int:
+    tmp = tempfile.mkdtemp(prefix="flash_mutants_")
+    try:
+        roots = {}
+        for name in ["unchanged", *MUTANTS]:
+            root = roots[name] = os.path.join(tmp, name)
+            shutil.copytree(os.path.join(HERE, "ray_tpu_torch"),
+                            os.path.join(root, "ray_tpu_torch"),
+                            ignore=shutil.ignore_patterns("_build",
+                                                          "__pycache__"))
+            if name in MUTANTS:
+                path = os.path.join(root, SOURCE)
+                with open(path) as f:
+                    text = f.read()
+                old, new = MUTANTS[name]
+                assert text.count(old) == 1, f"{name}: anchor not unique"
+                with open(path, "w") as f:
+                    f.write(text.replace(old, new))
+        builds = {name: subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+             " from ray_tpu_torch.ops import _build;"
+             " _build.build(['flash_attention'])", root],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, root in roots.items()}
+        for name, proc in builds.items():
+            out, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"build of {name} failed:\n{out}")
+        report, ok = {}, True
+        for name, root in roots.items():
+            run = subprocess.run([sys.executable, __file__, "--child", root],
+                                 capture_output=True, text=True, timeout=600)
+            if run.returncode:
+                raise RuntimeError(f"{name} did not run:\n{run.stderr}")
+            res = json.loads(run.stdout.strip().splitlines()[-1])
+            res["fails"] = {check: sorted(p for p, e in errs.items()
+                                          if not e["ok"])
+                            for check, errs in res.items()}
+            caught = any(res["fails"].values())
+            res["caught"] = caught
+            ok &= caught == (name != "unchanged")
+            report[name] = res
+            print(f"{name}: fails {res['fails']}", file=sys.stderr,
+                  flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"mutants": report, "ok": ok}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        child(sys.argv[2])
+    else:
+        sys.exit(main())

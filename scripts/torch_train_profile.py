@@ -1,0 +1,182 @@
+#!/usr/bin/env python3
+"""Where a training step of ray_tpu_torch goes, on one CUDA card.
+
+    python3 scripts/torch_train_profile.py [--config 1b_bench] [--batch 8]
+        [--seq 2048] [--steps 3]
+
+Trains ``--config`` from random weights on one random token batch, as
+``ray_tpu_torch.bench.run`` does: a warm-up step, ``--steps`` steps timed
+by the host clock (one synchronize at the end), then ``--steps`` steps
+under ``torch.profiler``. Prints one JSON object with, per step:
+
+- ``step_ms``, the host clock; ``device_busy_ms``, the sum of the
+  device's kernels and copies (one stream, so they do not overlap);
+  ``idle_share`` = 1 - busy / step;
+- ``by_kind``: device time and launches by kind of kernel: the flash
+  kernels (K1 ``flash_fwd``, K2a ``flash_dq``, K2b ``flash_dkv``), cuBLAS
+  products, elementwise, reductions, softmax, copies, other;
+- ``by_phase``: device time between CUDA events recorded where each
+  phase starts: the layers' forward, the head's and the loss's forward,
+  their backward, the layers' backward (remat recompute included) and the
+  optimizer (global norm, clip, AdamW).
+
+The profiler's table goes to ``chiprun_out/torch_train_profile.txt``.
+Needs CUDA.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PHASES = [  # (name, event that starts it, event that ends it)
+    ("layers forward", "step_start", "head_fwd_start"),
+    ("head forward", "head_fwd_start", "head_fwd_end"),
+    ("loss forward", "head_fwd_end", "loss_fwd_end"),
+    ("loss backward", "loss_fwd_end", "loss_bwd_end"),
+    ("head backward", "loss_bwd_end", "head_bwd_end"),
+    ("layers backward", "head_bwd_end", "opt_start"),
+    ("optimizer", "opt_start", "opt_end"),
+]
+KINDS = [  # (kind, substrings of the kernel name), first match wins
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_dkv", ("flash_bwd_dkv_kernel",)),
+    ("cublas products", ("nvjet", "gemm", "cublas", "cutlass", "xmma",
+                         "sm90_")),
+    ("softmax", ("softmax",)),
+    ("reductions", ("reduce_kernel", "Reduce")),
+    ("elementwise", ("elementwise", "index", "gather", "scatter")),
+    ("copies", ("Memcpy", "Memset", "memcpy", "memset")),
+]
+
+
+def kind_of(name: str) -> str:
+    for kind, keys in KINDS:
+        if any(key in name for key in keys):
+            return kind
+    return "other"
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="1b_bench")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--steps", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (OptimizerConfig,
+                                               init_train_state,
+                                               make_train_step)
+
+    dev = torch.device("cuda")
+    cfg = bench.CONFIGS[args.config]
+    opt = OptimizerConfig(warmup_steps=1, decay_steps=1000).make()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_train_state(lambda g: llama.init_params(cfg, g, dev), opt,
+                             gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
+                           generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens}
+
+    marks = {}
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[name] = ev
+
+    head_logits = llama._head_logits
+
+    def marked_head_logits(x, head):
+        mark("head_fwd_start")
+        if x.requires_grad:
+            x.register_hook(lambda g: mark("head_bwd_end"))
+        out = head_logits(x, head)
+        mark("head_fwd_end")
+        if out.requires_grad:
+            out.register_hook(lambda g: mark("loss_bwd_end"))
+        return out
+
+    llama._head_logits = marked_head_logits
+    update = opt.update_
+
+    def marked_update(*a):
+        mark("opt_start")
+        out = update(*a)
+        mark("opt_end")
+        return out
+
+    opt.update_ = marked_update
+
+    def loss(p, b):
+        mark("step_start")
+        out = llama.loss_fn(p, b, cfg)
+        mark("loss_fwd_end")
+        return out
+
+    step = make_train_step(loss, opt)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, m = step(state, batch)                   # warm-up
+    torch.cuda.synchronize()
+    phases = {name: 0.0 for name, _, _ in PHASES}
+    t = time.perf_counter()
+    for _ in range(args.steps):
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        for name, a, b in PHASES:
+            phases[name] += marks[a].elapsed_time(marks[b]) / args.steps
+    step_ms = 1e3 * (time.perf_counter() - t) / args.steps
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(args.steps):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "torch_train_profile.txt"),
+              "w") as f:
+        f.write(averages.table(sort_by="cuda_time_total", row_limit=60))
+    kernels = [e for e in averages
+               if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA
+               and e.device_time_total > 0]
+    by_kind = {}
+    for e in kernels:
+        rec = by_kind.setdefault(kind_of(e.key), {"ms": 0.0, "launches": 0})
+        rec["ms"] += e.device_time_total / 1e3 / args.steps
+        rec["launches"] += e.count / args.steps
+    busy_ms = sum(r["ms"] for r in by_kind.values())
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
+    print(json.dumps({
+        "config": args.config, "batch": args.batch, "seq": args.seq,
+        "device": torch.cuda.get_device_name(0),
+        "step_ms": step_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / step_ms,
+        "tokens_per_s": args.batch * args.seq / (step_ms / 1e3),
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "loss": float(m["loss"]),
+        "by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1]["ms"])),
+        "by_phase": phases,
+        "top_kernels": [{"name": e.key[:100], "ms": e.device_time_total
+                         / 1e3 / args.steps, "launches": e.count / args.steps}
+                        for e in top],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -83,3 +83,123 @@ def test_kernels_refuse_unsupported_dtype(cuda_device):
         tpaged.paged_decode_attention(q, kp, vp, tables, lengths, scale=1.0)
     with pytest.raises(TypeError):
         tdec.decode_attention(q, kp[:B], vp[:B], lengths, scale=1.0)
+
+
+# ------------------------------------------------------------ flash (K1, K2)
+# Tolerance: row by row (one position of one head), ||got_r - want_r|| <=
+# rtol ||want_r|| + atol rms_r, as ops/flash_attention.py's TOLERANCE states
+# with its reasons (in bf16 the kernels round P, and in the backward dS, to
+# bf16 for the tensor cores where the plain version keeps f32).
+
+FLASH_CASES = [  # B, Hq, Hkv, Sq, Skv, D, causal
+    (2, 4, 2, 128, 128, 64, True),
+    (1, 2, 1, 80, 80, 32, True),       # ragged tile tails
+    (1, 2, 2, 100, 77, 128, False),    # Sq != Skv, group 1
+    (2, 4, 1, 33, 33, 16, True),
+]
+
+
+def _flash_inputs(device, dtype, B, Hq, Hkv, Sq, Skv, D, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    return (rand(B, Hq, Sq, D), rand(B, Hkv, Skv, D), rand(B, Hkv, Skv, D),
+            rand(B, Hq, Sq, D))
+
+
+def _close(got, want):
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    res = tfa.mismatch(got, want)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda_device, dtype, case):
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    B, Hq, Hkv, Sq, Skv, D, causal = case
+    q, k, v, do = _flash_inputs(cuda_device, dtype, B, Hq, Hkv, Sq, Skv, D)
+    scale = D ** -0.5
+    n_fwd = tfa.flash_attention_fwd.launches
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == n_fwd + 1
+    want_out, want_lse = tfa.flash_attention_fwd_reference(
+        q, k, v, causal=causal, scale=scale)
+    _close(out, want_out)
+    _close(lse, want_lse)                    # f32 in both dtypes
+    delta = (do.float() * want_out.float()).sum(-1)
+    n = dict(tfa.flash_attention_bwd.launches)
+    got = tfa.flash_attention_bwd(q, k, v, want_lse, delta, do,
+                                  causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == {"dq": n["dq"] + 1,
+                                                "dkv": n["dkv"] + 1}
+    want = tfa.flash_attention_bwd_reference(q, k, v, want_lse, delta, do,
+                                             causal=causal, scale=scale)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _close(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_autograd_bf16_matches_plain(cuda_device, causal):
+    """flash_attention_with_lse in bf16 (K1, then K2a and K2b through its
+    autograd function) against the plain versions on the same tensors,
+    with a loss that reads lse so that dlse reaches delta."""
+    from ray_tpu_torch.ops import attention as tattn
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device)
+
+    q, k, v = (rand(2, 200, h, 64).bfloat16().requires_grad_()
+               for h in (4, 2, 2))
+    w, wl = rand(2, 200, 4, 64).bfloat16(), rand(2, 4, 200)
+    out, lse = tattn.flash_attention_with_lse(q, k, v, causal=causal)
+    ((out.float() * w.float()).sum() + (lse * wl).sum()).backward()
+    qh, kh, vh, dout = (t.detach().transpose(1, 2).contiguous()
+                        for t in (q, k, v, w))
+    out, lse = out.detach().transpose(1, 2), lse.detach()
+    kw = dict(causal=causal, scale=64 ** -0.5)
+    out_r, lse_r = tfa.flash_attention_fwd_reference(qh, kh, vh, **kw)
+    _close(out, out_r)
+    _close(lse, lse_r)
+    delta = (dout.float() * out.float()).sum(-1) - wl
+    want = tfa.flash_attention_bwd_reference(qh, kh, vh, lse, delta, dout,
+                                             **kw)
+    for t, r in zip((q, k, v), want):
+        assert t.grad.dtype == torch.bfloat16
+        _close(t.grad, r.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_operands(cuda_device):
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, _ = _flash_inputs(cuda_device, torch.float16, 1, 2, 1, 16, 16,
+                               32)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_fwd(q, k, v, causal=True, scale=1.0)
+    q, k, v, _ = _flash_inputs(cuda_device, torch.float32, 1, 2, 1, 16, 16,
+                               48)
+    with pytest.raises(ValueError):                  # head_dim 48
+        tfa.flash_attention_fwd(q, k, v, causal=True, scale=1.0)
+    q, k, v, _ = _flash_inputs(cuda_device, torch.float32, 1, 3, 2, 16, 16,
+                               32)
+    with pytest.raises(ValueError):                  # 3 heads over 2
+        tfa.flash_attention_fwd(q, k, v, causal=True, scale=1.0)
+    q, k, v, _ = _flash_inputs(cuda_device, torch.float32, 1, 2, 1, 16, 16,
+                               32)
+    with pytest.raises(ValueError):                  # not contiguous
+        tfa.flash_attention_fwd(q.transpose(2, 3).contiguous()
+                                .transpose(2, 3), k, v, causal=True,
+                                scale=1.0)
