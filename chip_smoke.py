@@ -8,7 +8,8 @@ trains the 1B Llama.
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit;
   2. build: every CUDA source under ray_tpu_torch/csrc, one nvcc each, all
-     started together;
+     started together; registers and spills of each flash kernel as
+     ptxas reports them;
   3. kernels: each decode-attention kernel against its plain PyTorch
      version at the serving shapes, in bf16 and f32, with edge lengths
      (1, a block, a non-multiple, full, stale full+1, 0) and shuffled
@@ -21,21 +22,25 @@ Phases (any failure exits non-zero, and no result line is printed):
   5. the 8b configuration served on the card through LLMEngine, paged then
      slot, from random weights: every output complete, logits finite, and
      each kernel launched once per layer per decode step;
-  6. flash attention: the forward (K1) and the backward kernels (K2a dq,
-     K2b dk/dv) against their plain versions, in bf16 and f32, at the
-     1b_bench shapes (B=8, Hq=32, Hkv=8, S=2048, D=64, causal), at D=128,
-     and at a ragged S=1000 with group 1, non-causal, row by row under
-     the tolerance ops/flash_attention.py states; times of kernel,
-     plain version and library yardstick (scaled_dot_product_attention
-     and its autograd backward, timed here only), and the bound; then the
-     training path's bf16 attention (flash_attention_with_lse and its
-     autograd backward) against the plain versions on the same tensors;
+  6. flash attention: the forward (K1) and the backward (bf16: the one
+     kernel flash_bwd_kernel; f32: K2a dq and K2b dk/dv) against their
+     plain versions, in bf16 and f32, at the 1b_bench shapes (B=8, Hq=32,
+     Hkv=8, S=2048, D=64, causal), at D=128, and at a ragged S=1000 with
+     group 1, non-causal, row by row under the tolerance
+     ops/flash_attention.py states, each call launching exactly the
+     kernels of its dtype; times of kernel (the bf16 backward with its
+     workspace zeroing and cast), plain version and library yardstick
+     (scaled_dot_product_attention and its autograd backward, timed here
+     only), and the bound; then the training path's bf16 attention
+     (flash_attention_with_lse and its autograd backward) against the
+     plain versions on the same tensors;
   7. the f32 debug model trained 5 steps on the card and on the CPU from
-     the same weights and batch: same losses and parameters;
+     the same weights and batch: same losses and parameters, through K1
+     and the f32 K2a, K2b;
   8. 1b_bench (the JAX package's headline training configuration) trained
      at full width and depth through ray_tpu_torch.bench.run: finite,
      falling loss, and each flash kernel launched exactly as the path
-     needs;
+     needs (K1 and the bf16 flash_bwd_kernel; no K2a, K2b);
   9. the kernels line, then the result line.
 
 Needs one CUDA card, nvcc, and about 40 GB of device memory; no network.
@@ -43,6 +48,7 @@ Needs one CUDA card, nvcc, and about 40 GB of device memory; no network.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -89,6 +95,19 @@ def bound_ms(rows, B, H, KV, D, itemsize, dtype_name, index_bytes):
     t_ops = ops / PEAK_OPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def kernel_label(mangled):
+    """flash_bwd_kernel<64>, flash_fwd_kernel<bf16,64>, ... from a
+    mangled kernel name."""
+    m = re.search(r"\d(flash_[a-z_]+?_kernel)I(.+?E)Ev", mangled)
+    if not m:
+        return mangled[:60]
+    args = m.group(2)
+    kind = ("bf16," if "__nv_bfloat16" in args
+            else "f32," if args.startswith("f") else "")
+    dims = ",".join(re.findall(r"Li(\d+)E", args))
+    return f"{m.group(1)}<{kind}{dims}>"
 
 
 # ------------------------------------------------------------- phase 3
@@ -333,13 +352,16 @@ FLASH_CASES = [  # name, B, Hq, Hkv, S (= Sq = Skv), D, causal
 def flash_bound_ms(kernel, B, Hq, Hkv, S, D, causal, itemsize, dtype_name):
     """Least time of one call: its products over the peak rate (only the
     unmasked query-key pairs), or each operand read and each result
-    written once over 3.35 TB/s. Products: K1 Q·Kᵀ and P·V; K2a Q·Kᵀ,
-    dO·Vᵀ and dS·K; K2b those two and Pᵀ·dO, dSᵀ·Q."""
+    written once over 3.35 TB/s. Products: K1 Q·Kᵀ and P·V; the backward
+    (bwd) Q·Kᵀ, dO·Vᵀ, dS·K, Pᵀ·dO and dSᵀ·Q, reading q, k, v, dO, lse
+    and delta and writing dq, dk and dv; K2a the first three; K2b all but
+    dS·K."""
     pairs = B * Hq * (S * (S + 1) // 2 if causal else S * S)
-    products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
+    products = {"fwd": 2, "bwd": 5, "dq": 3, "dkv": 4}[kernel]
     ops = 2 * D * pairs * products
     qsize, kvsize, rows = B * Hq * S * D, B * Hkv * S * D, 4 * B * Hq * S
     nbytes = {"fwd": itemsize * (2 * qsize + 2 * kvsize) + rows,
+              "bwd": itemsize * (3 * qsize + 4 * kvsize) + 2 * rows,
               "dq": itemsize * (3 * qsize + 2 * kvsize) + 2 * rows,
               "dkv": itemsize * (2 * qsize + 4 * kvsize) + 2 * rows}[kernel]
     t_ops = ops / PEAK_OPS[dtype_name]
@@ -379,12 +401,15 @@ def flash_inputs(device, dt, B, Hq, Hkv, S, D, seed=0):
         rand(B, Hq, S, D)
 
 
+BWD_KERNELS = {"bfloat16": ("bwd",), "float32": ("dq", "dkv")}
+
+
 def flash_compare(q, k, v, do, causal):
-    """K1, and K2a with K2b through flash_attention_bwd, against their
-    plain versions on the same inputs (both backward versions take the
-    plain forward's lse and delta). Returns each result's mismatch
-    (ops.flash_attention.mismatch: row by row under the stated tolerance)
-    and the backward's operands."""
+    """K1, and the backward kernels of q's dtype through
+    flash_attention_bwd, against their plain versions on the same inputs
+    (both backward versions take the plain forward's lse and delta).
+    Returns each result's mismatch (ops.flash_attention.mismatch: row by
+    row under the stated tolerance) and the backward's operands."""
     import torch
 
     from ray_tpu_torch.ops import flash_attention as fa
@@ -395,8 +420,13 @@ def flash_compare(q, k, v, do, causal):
     want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
     delta = (do.float() * want_out.float()).sum(-1)
     bwd_args = (q, k, v, want_lse, delta, do)
+    before = dict(fa.flash_attention_bwd.launches)
     got = fa.flash_attention_bwd(*bwd_args, **kw)
     torch.cuda.synchronize()
+    ran = BWD_KERNELS[str(q.dtype).split(".")[1]]
+    assert fa.flash_attention_bwd.launches == {
+        key: n + (key in ran) for key, n in before.items()}, \
+        (before, fa.flash_attention_bwd.launches)
     want = fa.flash_attention_bwd_reference(*bwd_args, **kw)
     errs = {}
     for part, g, w in zip(("out", "lse", "dq", "dk", "dv"),
@@ -429,8 +459,11 @@ def flash_grad_check(device, B=2, Hq=32, Hkv=8, S=2048, D=64, seed=1):
     w, wl = rand(B, S, Hq, D).bfloat16(), rand(B, Hq, S)
     out, lse = attention.flash_attention_with_lse(q, k, v, causal=True)
     loss = (out.float() * w.float()).sum() + (lse * wl).sum()
+    reset_flash_launches()
     got = torch.autograd.grad(loss, (q, k, v))
     torch.cuda.synchronize()
+    launches = flash_launches()
+    assert launches == {"fwd": 0, "bwd": 1, "dq": 0, "dkv": 0}, launches
     # the plain versions on the same tensors: the forward on q, k, v; the
     # backward also on the card's out and lse, with delta formed here
     qh, kh, vh, dout = (t.detach().transpose(1, 2).contiguous()
@@ -455,11 +488,11 @@ def assert_within(what, errs):
 
 
 def flash_checks(device, cases=FLASH_CASES, iters=TIMED_ITERS, seed=0):
-    """K1, K2a and K2b against their plain versions in bf16 and f32, with
-    the times of kernel, plain version and the library yardstick
-    (F.scaled_dot_product_attention forward, and the autograd backward
-    through it, timed here only). Returns records keyed by case and
-    dtype."""
+    """K1 and the backward kernels (bf16: flash_bwd_kernel; f32: K2a and
+    K2b) against their plain versions, with the times of kernel, plain
+    version and the library yardstick (F.scaled_dot_product_attention
+    forward, and the autograd backward through it, timed here only).
+    Returns records keyed by case and dtype."""
     import torch
     import torch.nn.functional as F
 
@@ -493,16 +526,25 @@ def flash_checks(device, cases=FLASH_CASES, iters=TIMED_ITERS, seed=0):
                         time_ms([lambda: fa.flash_attention_fwd_reference(
                             q, k, v, **kw)], plain_iters),
                         time_ms([lib_fwd], iters)),
-                "dq": (time_ms([lambda: fa.bwd_dq(*bwd_args, **kw)], iters),
-                       time_ms([lambda: fa.bwd_dq_reference(
-                           *bwd_args, **kw)], plain_iters),
-                       None),
-                "dkv": (time_ms([lambda: fa.bwd_dkv(*bwd_args, **kw)],
-                                iters),
-                        time_ms([lambda: fa.bwd_dkv_reference(
-                            *bwd_args, **kw)], plain_iters),
-                        None),
             }
+            if dt == torch.bfloat16:
+                # the wrapper's whole call: workspace zeroing, kernel, cast
+                times["bwd"] = (
+                    time_ms([lambda: fa.bwd_fused(*bwd_args, **kw)], iters),
+                    time_ms([lambda: fa.flash_attention_bwd_reference(
+                        *bwd_args, **kw)], plain_iters),
+                    None)
+            else:
+                times["dq"] = (
+                    time_ms([lambda: fa.bwd_dq(*bwd_args, **kw)], iters),
+                    time_ms([lambda: fa.bwd_dq_reference(*bwd_args, **kw)],
+                            plain_iters),
+                    None)
+                times["dkv"] = (
+                    time_ms([lambda: fa.bwd_dkv(*bwd_args, **kw)], iters),
+                    time_ms([lambda: fa.bwd_dkv_reference(*bwd_args, **kw)],
+                            plain_iters),
+                    None)
             lib_bwd_ms = time_ms([lib_bwd], iters)
             rec = {"errors": errs, "tolerance": fa.TOLERANCE[dt],
                    "shape": [B, Hq, Hkv, S, D, causal],
@@ -530,22 +572,21 @@ def flash_launches():
     from ray_tpu_torch.ops import flash_attention as fa
 
     return {"fwd": fa.flash_attention_fwd.launches,
-            "dq": fa.flash_attention_bwd.launches["dq"],
-            "dkv": fa.flash_attention_bwd.launches["dkv"]}
+            **fa.flash_attention_bwd.launches}
 
 
 def reset_flash_launches():
     from ray_tpu_torch.ops import flash_attention as fa
 
     fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_bwd.launches = {"dq": 0, "dkv": 0}
+    fa.flash_attention_bwd.launches = {"bwd": 0, "dq": 0, "dkv": 0}
 
 
 def debug_train_check(device, steps=5, seed=0):
     """The f32 debug model trained ``steps`` steps on the card and on the
     CPU from the same weights and numpy batch: losses to 1e-4 relative,
-    final parameters to 1e-4 absolute, and each flash kernel launched once
-    per layer per step on the card (no remat)."""
+    final parameters to 1e-4 absolute, and K1 and the f32 K2a, K2b each
+    launched once per layer per step on the card (no remat)."""
     import numpy as np
     import torch
 
@@ -577,8 +618,8 @@ def debug_train_check(device, steps=5, seed=0):
                                   tree_leaves(state.params)],
                          flash_launches())
     (card, card_p, launches), (cpu, cpu_p, _) = res["cuda"], res["cpu"]
-    want = {"fwd": steps * cfg.n_layers, "dq": steps * cfg.n_layers,
-            "dkv": steps * cfg.n_layers}
+    want = {"fwd": steps * cfg.n_layers, "bwd": 0,
+            "dq": steps * cfg.n_layers, "dkv": steps * cfg.n_layers}
     assert launches == want, (launches, want)
     for a, b in zip(card, cpu):
         assert abs(a - b) <= 1e-4 * abs(b), ("debug losses", card, cpu)
@@ -595,7 +636,8 @@ def train_1b_check(device, steps=5):
     """1b_bench at full width and depth through ray_tpu_torch.bench.run:
     finite losses, the last below the warm-up step's, and each flash
     kernel launched exactly as the path needs (K1 twice per layer per
-    step, forward and remat recompute; K2a and K2b once)."""
+    step, forward and remat recompute; the bf16 backward flash_bwd_kernel
+    once; the f32 K2a and K2b never)."""
     import math
 
     from ray_tpu_torch import bench
@@ -606,8 +648,8 @@ def train_1b_check(device, steps=5):
                     device=device)
     launches = flash_launches()
     n = steps + 1                                  # warm-up included
-    want = {"fwd": 2 * n * cfg.n_layers, "dq": n * cfg.n_layers,
-            "dkv": n * cfg.n_layers}
+    want = {"fwd": 2 * n * cfg.n_layers, "bwd": n * cfg.n_layers, "dq": 0,
+            "dkv": 0}
     assert launches == want, (launches, want)
     assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
     assert res["losses"][-1] < res["losses"][0], res["losses"]
@@ -649,6 +691,11 @@ def main() -> int:
     built = _build.build(_build.sources())
     report["build_s"] = time.perf_counter() - t
     log(f"[2] build: {built} in {report['build_s']:.2f} s")
+    report["ptxas"] = {
+        kernel_label(name): res for name, res in _build.kernel_resources(
+            _build.LOGS.get("flash_attention", "")).items()}
+    log("[2] ptxas (registers, spill stores/loads in bytes): " + json.dumps(
+        report["ptxas"]))
 
     # 3. kernels against their plain versions
     log("[3] kernels vs plain versions (B=8 H=32 KV=8 D=128 bs=64 MBS=32, "
@@ -738,26 +785,35 @@ def main() -> int:
             "library_ms": rec["library_ms"], "dtype": "bfloat16",
             "float32": k[kind_]["float32"]})
     fl = report["flash"]["1b_bench"]
-    for name, kern, replaces in (
-            ("flash_fwd_kernel", "fwd",
-             "ray_tpu/ops/pallas/flash_attention.py:90"),
-            ("flash_bwd_dq_kernel", "dq",
-             "ray_tpu/ops/pallas/flash_attention.py:273"),
-            ("flash_bwd_dkv_kernel", "dkv",
-             "ray_tpu/ops/pallas/flash_attention.py:363")):
-        parts = {"fwd": ("out", "lse"), "dq": ("dq",),
-                 "dkv": ("dk", "dv")}[kern]
-        lines.append({
+    # the bf16 kernels' launches come from phase 8 (1b_bench), the f32
+    # backward's from phase 7 (debug, f32), each read around its own run
+    for name, kern, dname, replaces, launches in (
+            ("flash_fwd_kernel", "fwd", "bfloat16",
+             "ray_tpu/ops/pallas/flash_attention.py:90",
+             report["train"]["launches"]["fwd"]),
+            ("flash_bwd_kernel", "bwd", "bfloat16",
+             "ray_tpu/ops/pallas/flash_attention.py:273",
+             report["train"]["launches"]["bwd"]),
+            ("flash_bwd_dq_kernel", "dq", "float32",
+             "ray_tpu/ops/pallas/flash_attention.py:326",
+             report["debug_train"]["launches"]["dq"]),
+            ("flash_bwd_dkv_kernel", "dkv", "float32",
+             "ray_tpu/ops/pallas/flash_attention.py:363",
+             report["debug_train"]["launches"]["dkv"])):
+        parts = {"fwd": ("out", "lse"), "bwd": ("dq", "dk", "dv"),
+                 "dq": ("dq",), "dkv": ("dk", "dv")}[kern]
+        rec = {
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/csrc/flash_attention.cu",
-            "replaces": replaces,
-            "launches": report["train"]["launches"][kern],
-            "max_abs_err": max(fl["bfloat16"]["errors"][p]["max_abs_err"]
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(fl[dname]["errors"][p]["max_abs_err"]
                                for p in parts),
-            **{key: fl["bfloat16"][kern][key] for key in (
+            **{key: fl[dname][kern][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "dtype": "bfloat16", "shape": fl["bfloat16"]["shape"],
-            "float32": fl["float32"][kern]})
+            "dtype": dname, "shape": fl[dname]["shape"]}
+        if kern == "fwd":
+            rec["float32"] = fl["float32"]["fwd"]
+        lines.append(rec)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as f:

@@ -1,15 +1,15 @@
-// Flash attention for training on Hopper (sm_90a): the forward and the two
-// backward kernels of causal or full attention, GQA-aware, in the
-// (B, H, S, D) layout, for float and bfloat16, D in {16, 32, 64, 128}.
+// Flash attention for training on Hopper (sm_90a): the forward and the
+// backward of causal or full attention, GQA-aware, in the (B, H, S, D)
+// layout, for float and bfloat16, D in {16, 32, 64, 128}.
 //
 //   flash_fwd_kernel      replaces the Pallas TPU kernel
 //     ray_tpu/ops/pallas/flash_attention.py::flash_attention_fwd_pallas
 //     (kernel _fwd_kernel): out and the f32 log-sum-exp per query row.
-//   flash_bwd_dq_kernel   replaces flash_attention_bwd_pallas's first call
-//     (kernel _bwd_dq_kernel): dQ = scale * dS K.
-//   flash_bwd_dkv_kernel  replaces its second call (kernel _bwd_dkv_kernel):
-//     dV = P^T dO and dK = scale * dS^T Q, the GQA group reduced inside the
-//     block.
+//   flash_bwd_kernel      bfloat16: replaces both calls of
+//     flash_attention_bwd_pallas (kernels _bwd_dq_kernel, _bwd_dkv_kernel)
+//     in one pass: dQ = scale * dS K, dV = P^T dO, dK = scale * dS^T Q.
+//   flash_bwd_dq_kernel, flash_bwd_dkv_kernel  float32: the same two calls
+//     as two kernels, the GQA group of dK/dV reduced inside the block.
 // with P = exp(scale * Q K^T - lse) recomputed from lse and
 // dS = P o (dO V^T - delta), delta = rowsum(dO o O) - dlse from the caller.
 //
@@ -23,35 +23,58 @@
 // (B=8, Hq=32, Hkv=8, S=2048, D=64, causal) the forward does
 // 4*B*H*S^2*D/2 = 137.4 GFLOP against 67 MB of q/k/v/out, far above the
 // ~295 flop/byte ridge, so its least time is 0.139 ms at 989 TFLOP/s of
-// bf16. The backward needs 2.5x that (0.347 ms for dq + dkv together); this
-// split design recomputes S in both kernels and dP in both, so it does
-// 206 GFLOP in dq and 275 GFLOP in dkv.
+// bf16. The backward's five products need 343.8 GFLOP, 0.348 ms.
 //
-// Design (simple and right first):
-//   * bfloat16: one block of 4 warps per (b*H, 64-row tile); each warp owns
-//     16 rows and keeps its scores, probabilities and accumulators in
-//     registers in the mma.sync m16n8k16 fragment layout (bf16 operands,
-//     f32 accumulation), so S and P never touch shared memory: the C
-//     fragment of S is repacked in registers as the A fragment of P V.
-//     Operand tiles are staged to shared memory with 16-byte loads, rows
-//     padded by 8 elements so fragment loads hit distinct banks.
-//   * float: the same loops on CUDA cores with f32 FMA (no TF32): 32-row
-//     tiles, 4 threads per row; a row's P or dS goes through shared memory
-//     to the row's own 4 threads.
-//   * dkv loops, per block, over (group member, q tile) pairs from the
-//     causal diagonal on, so each kv tile's gradient is summed in
-//     registers: no atomics, deterministic results.
-//   * Causal loops stop at the diagonal (fwd, dq) or start there (dkv);
-//     the fwd and dq grids start with the heaviest q tiles.
-// Precision of the bfloat16 instantiation: P is rounded to bf16 before
-// P V, as the TPU kernel does. The TPU backward takes dS K, dS^T Q and
-// P^T dO in f32; here P and dS are rounded to bf16 for the tensor cores
-// (relative error 2^-9 per term), so each row of out/dq/dk/dv is held to
-// 2e-2 of its own norm against the f32 plain version, the tolerance
-// ops/flash_attention.py states. The f32 instantiation computes everything
-// in f32.
-// Left for later: cp.async/TMA double buffering, wgmma with 64-row
-// warpgroup tiles, a persistent schedule, and exp2 with a folded scale.
+// Forward design (simple and right first): one block of 4 warps per
+// (b*H, 64-row q tile); each warp owns 16 rows and keeps scores,
+// probabilities and accumulators in registers in the mma.sync m16n8k16
+// fragment layout (bf16 operands, f32 accumulation), so S and P never touch
+// shared memory: the C fragment of S is repacked in registers as the A
+// fragment of P V. Operand tiles are staged to shared memory with 16-byte
+// loads, rows padded by 8 elements so fragment loads hit distinct banks.
+// The causal loop stops at the diagonal; the grid starts with the heaviest
+// q tiles.
+//
+// bfloat16 backward design (flash_bwd_kernel; FlashAttention-2/3's
+// backward): one block of two warpgroups per (b*Hkv, 128-row kv tile)
+// computes S^T and dP^T once per (GQA member, q tile) pair and takes all
+// five products from them, so nothing is recomputed (the split design did
+// 1.40x the work). Every product is a wgmma (bf16 in, f32 accumulated):
+// S^T = K Q^T and dP^T = V dO^T from shared memory, dV += P^T dO and
+// dK += dS^T Q with P^T, dS^T in registers (the C fragment repacked as the
+// A fragment), dQ = dS K with dS^T through shared memory, read M-major.
+// Tiles sit in shared memory as wgmma's no-swizzle core matrices, which
+// one tile serves both untransposed (S^T, dP^T) and transposed (dV, dK,
+// dQ). Loads are cp.async into a double buffer: the next pair's Q, dO, lse
+// and delta land while the current pair computes (not TMA: cp.async
+// writes the core-matrix layout at every D without tensor maps from the
+// driver API). dK and dV stay in registers over the whole GQA group
+// (deterministic, no atomics). Each pair's dQ tile goes through a
+// warp-private patch of shared memory into an f32 workspace by bulk
+// (TMA) reduce-adds, cp.reduce.async.bulk .add.f32, one per row: the adds
+// happen in L2, asynchronously, in no fixed order, so dQ's last bit
+// varies from run to run. exp2 with scale*log2(e) folded into one FMA;
+// masks only on tiles that cross the diagonal or a ragged tail.
+// At 1b_bench the grid is 64 kv heads x 16 kv tiles on 132 SMs, one block
+// each (140-240 registers a thread, no spills), heaviest causal tiles
+// first. Bound: 343.8 GFLOP, 0.348 ms at the bf16 peak. What holds it
+// back is memory traffic, not the tensor cores (scripts/flash_bwd_ablation.py,
+// PERF.md): without the dQ reduce-adds (1.1 GB into L2 a call) the kernel
+// takes about a fifth less time, without the Q, dO, lse and delta loads
+// about a fifth less, while dropping one of the five products saves
+// nothing; blocks of one kv head side by side, or a causal tile paired
+// with its mirror per block, did not make it faster.
+//
+// The float32 instantiations (the forward, and the backward as
+// flash_bwd_dq_kernel and flash_bwd_dkv_kernel) run the same loops on CUDA
+// cores with f32 FMA (no TF32): 32-row tiles, 4 threads per row.
+//
+// Precision of bfloat16: P is rounded to bf16 before P V, as the TPU kernel
+// does. The TPU backward takes dS K, dS^T Q and P^T dO in f32; here P and dS
+// are rounded to bf16 for the tensor cores (relative error 2^-9 per term),
+// so each row of out/dq/dk/dv is held to 2e-2 of its own norm against the
+// f32 plain version, the tolerance ops/flash_attention.py states.
+// Left for the forward: wgmma, copy/compute overlap, exp2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,12 +98,8 @@ struct Cfg;
 template <int D>
 struct Cfg<bf16, D> {
   static constexpr int BQ = 64, BKV = 64;
-  static constexpr int BQ_DKV = D <= 64 ? 64 : 32;   // register budget
   static constexpr int LD = D + 8;
   static constexpr size_t fwd_smem = (BQ + 2 * BKV) * LD * sizeof(bf16);
-  static constexpr size_t dq_smem = (2 * BQ + 2 * BKV) * LD * sizeof(bf16);
-  static constexpr size_t dkv_smem =
-      (2 * BKV + 2 * BQ_DKV) * LD * sizeof(bf16) + 2 * BQ_DKV * sizeof(float);
 };
 
 template <int D>
@@ -315,156 +334,516 @@ __device__ __forceinline__ void fwd_mma(const bf16* __restrict__ q,
                      inv[0], inv[1], lane);
 }
 
-template <int D>
-__device__ __forceinline__ void dq_mma(const bf16* __restrict__ q,
-                                       const bf16* __restrict__ k,
-                                       const bf16* __restrict__ v,
-                                       const bf16* __restrict__ dout,
-                                       const float* __restrict__ lse,
-                                       const float* __restrict__ delta,
-                                       bf16* __restrict__ dq, int Hq, int Hkv,
-                                       int Sq, int Skv, float scale,
-                                       int causal, unsigned char* smem) {
-  using C = Cfg<bf16, D>;
-  constexpr int BQ = C::BQ, BKV = C::BKV, LD = C::LD, NS = BKV / 8;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
-  const int q0 = qt * BQ;
-  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
-  const int t = lane & 3;
-  const int r_lo = q0 + wr + (lane >> 2);
+// ------------------------------------------------------------------ bf16 backward
 
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + BQ * LD;
-  bf16* sK = sdO + BQ * LD;
-  bf16* sV = sK + BKV * LD;
-  const size_t qoff = (static_cast<size_t>(bh) * Sq + q0) * D;
-  stage_bf16<D>(sQ, q + qoff, Sq - q0, BQ);
-  stage_bf16<D>(sdO, dout + qoff, Sq - q0, BQ);
-  const bf16* kb = k + static_cast<size_t>(kvh) * Skv * D;
-  const bf16* vb = v + static_cast<size_t>(kvh) * Skv * D;
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r_lo + 8 * i;
-    lse_r[i] = r < Sq ? lse[static_cast<size_t>(bh) * Sq + r] : 0.f;
-    delta_r[i] = r < Sq ? delta[static_cast<size_t>(bh) * Sq + r] : 0.f;
+// wgmma m64nNk16, bf16 operands, f32 accumulators d[N/2] in the C fragment
+// layout (warp w of the warpgroup holds rows 16w + lane/4 and + 8; chunk j
+// of 8 columns holds d[4j..4j+3] at columns 8j + 2(lane%4), + 1). ss: A and
+// B from shared memory through descriptors, TA/TB the transpose bits; rs: A
+// from registers in the mma.sync A fragment layout. scale_d 0 overwrites d.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}"
+        ", %4, %5, p, 1, 1, %7, %8;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();
-    stage_bf16<D>(sK, kb + static_cast<size_t>(k0) * D, Skv - k0, BKV);
-    stage_bf16<D>(sV, vb + static_cast<size_t>(k0) * D, Skv - k0, BKV);
-    __syncthreads();
-    float s[NS][4], dp[NS][4];
-    warp_abt<D, NS>(s, sQ, sK, wr, lane);
-    warp_abt<D, NS>(dp, sdO, sV, wr, lane);
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const int i = e >> 1;
-        const int r = r_lo + 8 * i;
-        const bool ok = r < Sq && col < Skv && (!causal || r >= col);
-        const float p = ok ? expf(s[n][e] * scale - lse_r[i]) : 0.f;
-        s[n][e] = p * (dp[n][e] - delta_r[i]);
-      }
-    }
-    warp_pb<D, NS>(acc, s, sK, lane);
+  template <int TB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}"
+        ", {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
   }
-  store_rows_bf16<D>(dq + static_cast<size_t>(bh) * Sq * D, acc, r_lo, Sq,
-                     scale, scale, lane);
+};
+
+template <>
+struct Wgmma<16> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}"
+        ", %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}"
+        ", {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}"
+        ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}"
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}"
+        ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}"
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of wgmma accumulators across the
+// wait that completes them.
+template <int R>
+__device__ __forceinline__ void reg_fence(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Makes this thread's generic-proxy writes to shared memory (stores,
+// completed cp.async) visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 16 bytes global -> shared, zero-filled when !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Bulk (TMA) reduce-add of `bytes` (a multiple of 16) of f32 from shared
+// memory into global memory; the adds happen in L2, the issuing thread
+// only tracks its bulk groups.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const float* src,
+                                                    int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(src));
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+      ::"l"(dst), "r"(s), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// This thread's bulk groups have finished reading shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... and have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Element offset of (r, c) in a bf16 tile of W columns stored as wgmma's
+// no-swizzle core matrices: 8 rows of 16 bytes in 128 contiguous bytes,
+// core matrices row-group major. One such tile serves as a K-major operand
+// (K along the columns) and as an MN-major one (K along the rows).
+template <int W>
+__device__ __forceinline__ int core_off(int r, int c) {
+  return ((r >> 3) * (W / 8) + (c >> 3)) * 64 + (r & 7) * 8 + (c & 7);
+}
+
+__device__ __forceinline__ uint64_t smem_desc(const bf16* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(lbo >> 4) << 16)
+         | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+// Descriptor of the operand starting at p in a tile of W columns, K along
+// the columns: the next 8 K values are the next core matrix (128 bytes),
+// the next 8 rows W/8 core matrices on.
+template <int W>
+__device__ __forceinline__ uint64_t desc_k(const bf16* p) {
+  return smem_desc(p, 128, 16 * W);
+}
+// K along the rows (MN-major, with the transpose bit): the next 8 K rows
+// are W/8 core matrices on (leading offset), the next 8 columns the next
+// core matrix (stride offset).
+template <int W>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* p) {
+  return smem_desc(p, 16 * W, 128);
+}
+
+// Rows [0, nrows) of a row-major (rows, D) tile into core layout with
+// cp.async, rows from `avail` on zero-filled (never read).
+template <int D, int NT>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           int avail, int nrows, int tid) {
+  constexpr int C = D / 8;
+  for (int i = tid; i < nrows * C; i += NT) {
+    const int r = i / C, c = i % C;
+    const bool ok = r < avail;
+    cp_async16(dst + core_off<D>(r, c * 8),
+               ok ? src + static_cast<size_t>(r) * D + c * 8 : src, ok);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void stage_vec(float* dst, const float* src,
+                                          int avail, int n, int tid) {
+  for (int i = tid; i < n; i += NT) {
+    cp_async4(dst + i, i < avail ? src + i : src, i < avail);
+  }
 }
 
 template <int D>
-__device__ __forceinline__ void dkv_mma(const bf16* __restrict__ q,
-                                        const bf16* __restrict__ k,
-                                        const bf16* __restrict__ v,
-                                        const bf16* __restrict__ dout,
-                                        const float* __restrict__ lse,
-                                        const float* __restrict__ delta,
-                                        bf16* __restrict__ dk,
-                                        bf16* __restrict__ dv, int Hq,
-                                        int Hkv, int Sq, int Skv, float scale,
-                                        int causal, unsigned char* smem) {
-  using C = Cfg<bf16, D>;
-  constexpr int BQ = C::BQ_DKV, BKV = C::BKV, LD = C::LD, NQ = BQ / 8;
-  const int bkv = blockIdx.y;
-  const int k0 = blockIdx.x * BKV;               // heaviest causal tile first
+struct BwdCfg {
+  // 64 q rows a pair: 128 took 248 registers a thread at D = 64, and at
+  // D = 128 spilled and outgrew shared memory
+  static constexpr int BQ = 64, BKV = 128, NT = 256;
+  static constexpr int DQN = D / 2;              // dQ columns per warpgroup
+  static constexpr int DQL = DQN + 8;            // row of a dQ patch, floats
+  static constexpr size_t smem =
+      (2 * BKV * D + 4 * BQ * D + BKV * BQ) * sizeof(bf16)
+      + (4 * BQ + 2 * BQ * DQL) * sizeof(float);
+};
+
+// The bf16 backward: one block of two warpgroups per (b * Hkv, 128-row kv
+// tile), warpgroup wg owning kv rows [64 wg, 64 wg + 64) of the tile. K and
+// V stay in shared memory; the block walks every (GQA member, BQ-row q
+// tile) pair from the causal diagonal on, Q, dO, lse and delta of the next
+// pair loading (cp.async, double buffer) while the current one computes:
+//   S^T = K Q^T, dP^T = V dO^T          wgmma ss, 64 x BQ, K = D
+//   P^T = exp2(S^T scale log2e - lse log2e), dS^T = P^T (dP^T - delta)
+//   dV += P^T dO, dK += dS^T Q          wgmma rs (P^T, dS^T in registers)
+//   dQ_tile = dS K                      wgmma ss, dS^T through shared memory
+//                                       (read M-major), warpgroup wg taking
+//                                       columns [wg D/2, wg D/2 + D/2)
+// dK and dV accumulate in registers over the whole group (no atomics);
+// each warp stages its rows of the dQ tile in shared memory and adds them
+// to the f32 workspace dq_acc with bulk reduce-adds, one per row.
+template <int D>
+__global__ void __launch_bounds__(BwdCfg<D>::NT, 1)
+flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq_acc,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq,
+                 int Hkv, int Sq, int Skv, float scale, int causal) {
+  using C = BwdCfg<D>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, NT = C::NT;
+  constexpr int DQN = C::DQN, DQL = C::DQL;
+  constexpr int DN = D < 64 ? D : 64;            // N of one dK/dV wgmma
+  constexpr int NJ = BQ / 8;                     // 8-column chunks of S^T
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  bf16* sK = reinterpret_cast<bf16*>(bwd_smem);
+  bf16* sV = sK + BKV * D;
+  bf16* sQ = sV + BKV * D;                       // two buffers
+  bf16* sdO = sQ + 2 * BQ * D;                   // two buffers
+  bf16* sdS = sdO + 2 * BQ * D;                  // dS^T (BKV x BQ)
+  float* sL = reinterpret_cast<float*>(sdS + BKV * BQ);   // two buffers
+  float* sDl = sL + 2 * BQ;                      // two buffers
+  float* sdQ = sDl + 2 * BQ;                     // (2 wg, BQ, DQL) dQ patches
+
+  const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bkv = blockIdx.x, k0 = blockIdx.y * BKV;
+  const int kw0 = k0 + 64 * wg;                  // this warpgroup's rows
   const int group = Hq / Hkv;
-  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
-  const int t = lane & 3;
-  const int c_lo = k0 + wr + (lane >> 2);        // this thread's kv rows
-
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BKV * LD;
-  bf16* sQ = sV + BKV * LD;
-  bf16* sdO = sQ + BQ * LD;
-  float* sL = reinterpret_cast<float*>(sdO + BQ * LD);
-  float* sDl = sL + BQ;
   const size_t koff = (static_cast<size_t>(bkv) * Skv + k0) * D;
-  stage_bf16<D>(sK, k + koff, Skv - k0, BKV);
-  stage_bf16<D>(sV, v + koff, Skv - k0, BKV);
+  stage_rows<D, NT>(sK, k + koff, Skv - k0, BKV, tid);
+  stage_rows<D, NT>(sV, v + koff, Skv - k0, BKV, tid);
+  cp_async_commit();
 
-  float gk[D / 8][4], gv[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    gk[dn][0] = gk[dn][1] = gk[dn][2] = gk[dn][3] = 0.f;
-    gv[dn][0] = gv[dn][1] = gv[dn][2] = gv[dn][3] = 0.f;
-  }
   const int q_first = causal ? k0 / BQ : 0;
   const int nqt = (Sq + BQ - 1) / BQ;
-  for (int gi = 0; gi < group; ++gi) {
-    const size_t bhq = static_cast<size_t>(bkv / Hkv) * Hq
-                       + (bkv % Hkv) * group + gi;
-    for (int qt = q_first; qt < nqt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();
-      const size_t qoff = (bhq * Sq + q0) * D;
-      stage_bf16<D>(sQ, q + qoff, Sq - q0, BQ);
-      stage_bf16<D>(sdO, dout + qoff, Sq - q0, BQ);
-      for (int i = threadIdx.x; i < BQ; i += kThreads) {
-        const bool in = q0 + i < Sq;
-        sL[i] = in ? lse[bhq * Sq + q0 + i] : 0.f;
-        sDl[i] = in ? delta[bhq * Sq + q0 + i] : 0.f;
-      }
-      __syncthreads();
-      float st[NQ][4], dp[NQ][4];
-      warp_abt<D, NQ>(st, sK, sQ, wr, lane);               // K Q^T
+  const int nq = max(nqt - q_first, 0);
+  const int n_iter = group * nq;
+  auto head_of = [&](int it) {                   // q head of pair `it`
+    return static_cast<size_t>(bkv / Hkv) * Hq + (bkv % Hkv) * group
+           + it / nq;
+  };
+  auto stage_pair = [&](int it) {
+    const int q0 = (q_first + it % nq) * BQ, buf = it & 1;
+    const size_t row0 = head_of(it) * Sq + q0;
+    stage_rows<D, NT>(sQ + buf * BQ * D, q + row0 * D, Sq - q0, BQ, tid);
+    stage_rows<D, NT>(sdO + buf * BQ * D, dout + row0 * D, Sq - q0, BQ, tid);
+    stage_vec<NT>(sL + buf * BQ, lse + row0, Sq - q0, BQ, tid);
+    stage_vec<NT>(sDl + buf * BQ, delta + row0, Sq - q0, BQ, tid);
+    cp_async_commit();
+  };
+  if (n_iter > 0) stage_pair(0);
+
+  const int dc0 = wg * DQN;                      // this warpgroup's dQ columns
+  float* patch = sdQ + (64 * wg + 16 * w) * DQL;   // this warp's 16 rows
+  float gk[D / 2], gv[D / 2];
 #pragma unroll
-      for (int n = 0; n < NQ; ++n) {
+  for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();             // pair `it` landed; pair it - 1 finished
+    if (it + 1 < n_iter) stage_pair(it + 1);
+    const int buf = it & 1;
+    const bf16* cQ = sQ + buf * BQ * D;
+    const bf16* cdO = sdO + buf * BQ * D;
+    const float* cL = sL + buf * BQ;
+    const float* cDl = sDl + buf * BQ;
+    const int qt = q_first + it % nq, q0 = qt * BQ;
+
+    float st[BQ / 2], dpt[BQ / 2];
+    wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = n * 8 + 2 * t + (e & 1);
-          const int qr = q0 + qc;
-          const int kr = c_lo + (e >> 1) * 8;
-          const bool ok = qr < Sq && kr < Skv && (!causal || qr >= kr);
-          st[n][e] = ok ? expf(st[n][e] * scale - sL[qc]) : 0.f;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<BQ>::template ss<0, 0>(st, desc_k<D>(sK + core_off<D>(64 * wg, 16 * kk)),
+                          desc_k<D>(cQ + core_off<D>(0, 16 * kk)), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<BQ>::template ss<0, 0>(dpt, desc_k<D>(sV + core_off<D>(64 * wg, 16 * kk)),
+                          desc_k<D>(cdO + core_off<D>(0, 16 * kk)), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    reg_fence<BQ / 2>(st);
+
+    // Masks only on tiles that cross the diagonal or a ragged tail.
+    const bool edge = (causal && q0 < kw0 + 63) || kw0 + 64 > Skv
+                      || q0 + BQ > Sq;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        float p = fast_exp2(fmaf(st[4 * j + e], sl2, -kLog2e * cL[c]));
+        if (edge) {
+          const int kr = kw0 + 16 * w + g + 8 * (e >> 1), qc = q0 + c;
+          p = (kr < Skv && qc < Sq && (!causal || qc >= kr)) ? p : 0.f;
         }
+        st[4 * j + e] = p;
       }
-      warp_pb<D, NQ>(gv, st, sdO, lane);                   // += P^T dO
-      warp_abt<D, NQ>(dp, sV, sdO, wr, lane);              // V dO^T
+    }
+    wgmma_wait<0>();
+    reg_fence<BQ / 2>(dpt);
 #pragma unroll
-      for (int n = 0; n < NQ; ++n) {
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = n * 8 + 2 * t + (e & 1);
-          st[n][e] *= dp[n][e] - sDl[qc];
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - cDl[c]);
       }
-      warp_pb<D, NQ>(gk, st, sQ, lane);                    // += dS^T Q
+    }
+    // P^T and dS^T as bf16 A fragments, one per 16 q columns
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[kk][i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+        da[kk][i] = pack_bf16(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1]);
+      }
+    }
+    reg_fence<D / 2>(gv);
+    reg_fence<D / 2>(gk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < D / DN; ++h) {
+        Wgmma<DN>::template rs<1>(gv + h * DN / 2, pa[kk],
+                         desc_mn<D>(cdO + core_off<D>(16 * kk, h * DN)), 1);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < D / DN; ++h) {
+        Wgmma<DN>::template rs<1>(gk + h * DN / 2, da[kk],
+                         desc_mn<D>(cQ + core_off<D>(16 * kk, h * DN)), 1);
+      }
+    }
+    wgmma_commit();
+
+    // dS^T (kv rows, q columns) to shared memory for dQ = dS K: a thread's
+    // two neighbouring q columns are one 32-bit word, a warp's 32 words
+    // 128 contiguous bytes
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 16 * kk + 8 * (i >> 1) + 2 * t;
+        const int r = 64 * wg + 16 * w + g + 8 * (i & 1);
+        *reinterpret_cast<uint32_t*>(sdS + core_off<BQ>(r, c)) = da[kk][i];
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();             // both warpgroups' dS^T written
+
+    float dqa[DQN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      Wgmma<DQN>::template ss<1, 1>(dqa, desc_mn<BQ>(sdS + core_off<BQ>(16 * kk, 0)),
+                           desc_mn<D>(sK + core_off<D>(16 * kk, dc0)), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence<D / 2>(gv);
+    reg_fence<D / 2>(gk);
+    reg_fence<DQN / 2>(dqa);
+    // This warp's 16 rows of the warpgroup's dQ columns, scaled, into its
+    // own patch of shared memory, then one bulk reduce-add per row: lane
+    // r < 16 issues row 16 w + r once its previous row has been read.
+    if (lane < 16) bulk_wait_read();
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < DQN / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        *reinterpret_cast<float2*>(patch + (g + 8 * i) * DQL + 8 * j + 2 * t) =
+            make_float2(dqa[4 * j + 2 * i] * scale,
+                        dqa[4 * j + 2 * i + 1] * scale);
+      }
+    }
+    fence_proxy_async();
+    __syncwarp();
+    const int row = 16 * w + lane;               // of the q tile
+    if (lane < 16 && q0 + row < Sq) {
+      bulk_reduce_add_f32(
+          dq_acc + (head_of(it) * Sq + q0 + row) * D + dc0,
+          patch + lane * DQL, DQN * 4);
+      bulk_commit();
     }
   }
+  cp_async_wait_all();
+  if (lane < 16) bulk_wait();
+
   const size_t base = static_cast<size_t>(bkv) * Skv * D;
-  store_rows_bf16<D>(dk + base, gk, c_lo, Skv, scale, scale, lane);
-  store_rows_bf16<D>(dv + base, gv, c_lo, Skv, 1.f, 1.f, lane);
+#pragma unroll
+  for (int h = 0; h < D / DN; ++h) {
+#pragma unroll
+    for (int j = 0; j < DN / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = kw0 + 16 * w + g + 8 * i;
+        const int idx = h * DN / 2 + 4 * j + 2 * i;
+        if (r >= Skv) continue;
+        const size_t o = base + static_cast<size_t>(r) * D + h * DN + 8 * j
+                         + 2 * t;
+        *reinterpret_cast<uint32_t*>(dk + o) =
+            pack_bf16(gk[idx] * scale, gk[idx + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(gv[idx], gv[idx + 1]);
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------------------ f32
@@ -740,35 +1119,27 @@ flash_fwd_kernel(const T* q, const T* k, const T* v, T* out, float* lse,
   }
 }
 
-template <typename T, int D>
+// The split backward, float32 only (bfloat16 takes flash_bwd_kernel).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* q, const T* k, const T* v, const T* dout,
-                    const float* lse, const float* delta, T* dq, int Hq,
-                    int Hkv, int Sq, int Skv, float scale, int causal) {
+flash_bwd_dq_kernel(const float* q, const float* k, const float* v,
+                    const float* dout, const float* lse, const float* delta,
+                    float* dq, int Hq, int Hkv, int Sq, int Skv, float scale,
+                    int causal) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (std::is_same<T, float>::value) {
-    dq_simt<D>(q, k, v, dout, lse, delta, dq, Hq, Hkv, Sq, Skv, scale,
-               causal, smem);
-  } else {
-    dq_mma<D>(q, k, v, dout, lse, delta, dq, Hq, Hkv, Sq, Skv, scale,
-              causal, smem);
-  }
+  dq_simt<D>(q, k, v, dout, lse, delta, dq, Hq, Hkv, Sq, Skv, scale, causal,
+             smem);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* q, const T* k, const T* v, const T* dout,
-                     const float* lse, const float* delta, T* dk, T* dv,
-                     int Hq, int Hkv, int Sq, int Skv, float scale,
-                     int causal) {
+flash_bwd_dkv_kernel(const float* q, const float* k, const float* v,
+                     const float* dout, const float* lse, const float* delta,
+                     float* dk, float* dv, int Hq, int Hkv, int Sq, int Skv,
+                     float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (std::is_same<T, float>::value) {
-    dkv_simt<D>(q, k, v, dout, lse, delta, dk, dv, Hq, Hkv, Sq, Skv, scale,
-                causal, smem);
-  } else {
-    dkv_mma<D>(q, k, v, dout, lse, delta, dk, dv, Hq, Hkv, Sq, Skv, scale,
-               causal, smem);
-  }
+  dkv_simt<D>(q, k, v, dout, lse, delta, dk, dv, Hq, Hkv, Sq, Skv, scale,
+              causal, smem);
 }
 
 // ------------------------------------------------------------------ host
@@ -808,42 +1179,61 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, Shape s, float scale, int causal,
                    cudaStream_t st) {
-  using C = Cfg<T, D>;
-  cudaError_t err = prepare(flash_bwd_dq_kernel<T, D>, C::dq_smem);
+  using C = Cfg<float, D>;
+  cudaError_t err = prepare(flash_bwd_dq_kernel<D>, C::dq_smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s.Sq + C::BQ - 1) / C::BQ, s.B * s.Hq);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, C::dq_smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_bwd_dq_kernel<D><<<grid, kThreads, C::dq_smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), s.Hq, s.Hkv, s.Sq, s.Skv, scale, causal);
+      static_cast<float*>(dq), s.Hq, s.Hkv, s.Sq, s.Skv, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, Shape s, float scale, int causal,
                     cudaStream_t st) {
-  using C = Cfg<T, D>;
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<T, D>, C::dkv_smem);
+  using C = Cfg<float, D>;
+  cudaError_t err = prepare(flash_bwd_dkv_kernel<D>, C::dkv_smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s.Skv + C::BKV - 1) / C::BKV, s.B * s.Hkv);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, C::dkv_smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, C::dkv_smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), s.Hq, s.Hkv, s.Sq, s.Skv,
-      scale, causal);
+      static_cast<float*>(dk), static_cast<float*>(dv), s.Hq, s.Hkv, s.Sq,
+      s.Skv, scale, causal);
   return cudaGetLastError();
 }
 
-// Calls F<T, D>::run(args...) for the runtime dtype code and head dim.
+template <int D>
+cudaError_t bwd(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dq_acc, void* dk, void* dv, Shape s, float scale,
+                int causal, cudaStream_t st) {
+  using C = BwdCfg<D>;
+  cudaError_t err = prepare(flash_bwd_kernel<D>, C::smem);
+  if (err != cudaSuccess) return err;
+  // kv tiles slowest, so the heaviest causal tiles (the first) go first
+  const dim3 grid(s.B * s.Hkv, (s.Skv + C::BKV - 1) / C::BKV);
+  flash_bwd_kernel<D><<<grid, C::NT, C::smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq_acc), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), s.Hq, s.Hkv, s.Sq, s.Skv, scale, causal);
+  return cudaGetLastError();
+}
+
+// Calls FN<T, D>(args...) for the runtime dtype code and head dim.
 #define FLASH_DISPATCH(FN, ...)                                              \
   do {                                                                       \
     if (dtype == 0) {                                                        \
@@ -865,6 +1255,18 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
       }                                                                      \
     }                                                                        \
     return cudaErrorInvalidValue;                                            \
+  } while (0)
+
+// Calls FN<D>(args...) for the runtime head dim.
+#define HEAD_DIM_DISPATCH(FN, ...)                                           \
+  do {                                                                       \
+    switch (D) {                                                             \
+      case 16: return FN<16>(__VA_ARGS__);                                   \
+      case 32: return FN<32>(__VA_ARGS__);                                   \
+      case 64: return FN<64>(__VA_ARGS__);                                   \
+      case 128: return FN<128>(__VA_ARGS__);                                 \
+      default: return cudaErrorInvalidValue;                                 \
+    }                                                                        \
   } while (0)
 
 }  // namespace
@@ -891,7 +1293,9 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
   const Shape s{B, Hq, Hkv, Sq, Skv};
   if (!valid(s)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, s, scale, causal, st);
+  if (dtype != 0) return cudaErrorInvalidValue;       // f32 only
+  HEAD_DIM_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, s, scale, causal,
+                    st);
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
@@ -904,6 +1308,22 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
   const Shape s{B, Hq, Hkv, Sq, Skv};
   if (!valid(s)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, s, scale,
-                 causal, st);
+  if (dtype != 0) return cudaErrorInvalidValue;       // f32 only
+  HEAD_DIM_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, s, scale,
+                    causal, st);
+}
+
+// The bfloat16 backward in one kernel. dq_acc (B, Hq, Sq, D) float32 must
+// hold zeros: the kernel adds scale * dS K into it.
+extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dq_acc, void* dk,
+                                void* dv, int B, int Hq, int Hkv, int Sq,
+                                int Skv, int D, float scale, int causal,
+                                void* stream) {
+  const Shape s{B, Hq, Hkv, Sq, Skv};
+  if (!valid(s)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  HEAD_DIM_DISPATCH(bwd, q, k, v, dout, lse, delta, dq_acc, dk, dv, s, scale,
+                    causal, st);
 }

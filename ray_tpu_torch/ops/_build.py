@@ -5,13 +5,17 @@ Each source ``ray_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``ray_tpu_torch/_build/lib<name>.so``, and loaded with ``ctypes``. A
 library is (re)built at first use in a process whenever it is missing or
 older than its source, so a fresh checkout builds itself. Nothing here
-runs at import time: the CPU-only tests import every module.
+runs at import time: the CPU-only tests import every module. ``ptxas``
+reports each kernel's registers and spills (``-Xptxas=-v``); the report of
+the last build in this process is kept in ``LOGS`` and read with
+:func:`kernel_resources`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,10 +25,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -69,6 +74,7 @@ def build(names: Iterable[str]) -> List[str]:
     errors = []
     for name, proc, tmp, lib in started:
         out, _ = proc.communicate()
+        LOGS[name] = out
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{out}")
             if os.path.exists(tmp):
@@ -93,3 +99,27 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_paths(name)[1])
             _libs[name] = lib
         return lib
+
+
+def kernel_resources(log: str) -> Dict[str, dict]:
+    """Per compiled kernel (mangled name) of a ptxas ``-v`` report:
+    registers per thread, spill stores and loads in bytes."""
+    res: Dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            res[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            res[name]["spill_stores"] = int(m.group(1))
+            res[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            res[name]["registers"] = int(m.group(1))
+    return res

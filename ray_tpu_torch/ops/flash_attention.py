@@ -1,6 +1,7 @@
 """Flash attention for training (port of
-``ray_tpu/ops/pallas/flash_attention.py``): the forward (K1) and the two
-backward kernels (K2a, dq; K2b, dk and dv).
+``ray_tpu/ops/pallas/flash_attention.py``): the forward (K1) and the
+backward (K2a, dq, and K2b, dk and dv: one kernel in bfloat16, two in
+float32).
 
 Layout contract, as the TPU kernels': q and dout (B, Hq, Sq, D), k and v
 (B, Hkv, Skv, D), lse and delta (B, Hq, Sq) float32 with
@@ -9,14 +10,15 @@ Layout contract, as the TPU kernels': q and dout (B, Hq, Sq, D), k and v
 
 On CUDA tensors :func:`flash_attention_fwd` and :func:`flash_attention_bwd`
 launch the hand-written kernels of ``ray_tpu_torch/csrc/flash_attention.cu``
-(``flash_fwd_kernel``, ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``)
-and raise on operands those kernels do not take; on CPU tensors they
-compute the plain versions :func:`flash_attention_fwd_reference` (a copy of
+(``flash_fwd_kernel``; the backward ``flash_bwd_kernel`` in bfloat16,
+``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` in float32) and raise
+on operands those kernels do not take; on CPU tensors they compute the
+plain versions :func:`flash_attention_fwd_reference` (a copy of
 ``_fwd_xla``, ``ray_tpu/ops/attention.py:49``) and
 :func:`flash_attention_bwd_reference` (the blockwise ``_flash_bwd_xla``,
 ``attention.py:113``, taking delta from the caller). Only kernel launches
 are counted: ``flash_attention_fwd.launches`` and
-``flash_attention_bwd.launches["dq"]`` / ``["dkv"]``.
+``flash_attention_bwd.launches["bwd"]`` / ``["dq"]`` / ``["dkv"]``.
 """
 
 from __future__ import annotations
@@ -208,12 +210,22 @@ def check_operands(q, k, v, dout=None, rows=()) -> int:
     return _DTYPES[q.dtype]
 
 
-def _fn(name: str, n_ptrs: int):
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SHAPE = [_I] * 6                                  # B, Hq, Hkv, Sq, Skv, D
+# The parameters of each extern "C" launch function of flash_attention.cu,
+# in order: tensors, shape, scale, causal, (dtype,) stream.
+ARGTYPES = {
+    "flash_fwd_launch": [_P] * 5 + _SHAPE + [_F, _I, _I, _P],
+    "flash_bwd_dq_launch": [_P] * 7 + _SHAPE + [_F, _I, _I, _P],
+    "flash_bwd_dkv_launch": [_P] * 8 + _SHAPE + [_F, _I, _I, _P],
+    "flash_bwd_launch": [_P] * 9 + _SHAPE + [_F, _I, _P],
+}
+
+
+def _fn(name: str):
     fn = getattr(_build.load("flash_attention"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+    fn.argtypes = ARGTYPES[name]
     return fn
 
 
@@ -238,10 +250,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool, scale: float):
     B, Hq, Sq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
-    rc = _fn("flash_fwd_launch", 5)(
+    rc = _fn("flash_fwd_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, Hq, k.shape[1], Sq, k.shape[2], D, float(scale),
-        int(causal), dtype, torch.cuda.current_stream(q.device).cuda_stream)
+        int(causal), dtype, _stream(q))
     _raise_on_error(rc, "flash_fwd_kernel")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -257,6 +269,9 @@ def flash_attention_bwd(q, k, v, lse, delta, dout, *, causal: bool,
                                              causal=causal, scale=scale,
                                              block=block)
     check_operands(q, k, v, dout, (lse, delta))
+    if q.dtype == torch.bfloat16:
+        return bwd_fused(q, k, v, lse, delta, dout, causal=causal,
+                         scale=scale)
     dq = bwd_dq(q, k, v, lse, delta, dout, causal=causal, scale=scale)
     dk, dv = bwd_dkv(q, k, v, lse, delta, dout, causal=causal, scale=scale)
     return dq, dk, dv
@@ -267,32 +282,62 @@ def _shape_args(q, k):
     return B, Hq, k.shape[1], Sq, k.shape[2], D
 
 
+def _stream(q) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def bwd_fused(q, k, v, lse, delta, dout, *, causal: bool, scale: float):
+    """Launch ``flash_bwd_kernel`` on checked bfloat16 CUDA operands →
+    (dq, dk, dv). dq is summed across kv tiles in a zeroed float32
+    workspace and cast to bfloat16 here."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_bwd_kernel takes bfloat16, got {q.dtype}")
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = _fn("flash_bwd_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *_shape_args(q, k), float(scale), int(causal),
+        _stream(q))
+    _raise_on_error(rc, "flash_bwd_kernel")
+    flash_attention_bwd.launches["bwd"] += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
+def _f32_only(q, kernel: str) -> None:
+    if q.dtype != torch.float32:
+        raise TypeError(f"{kernel} takes float32 (bfloat16 goes to "
+                        f"flash_bwd_kernel), got {q.dtype}")
+
+
 def bwd_dq(q, k, v, lse, delta, dout, *, causal: bool, scale: float):
-    """Launch ``flash_bwd_dq_kernel`` on checked CUDA operands → dq."""
+    """Launch ``flash_bwd_dq_kernel`` on checked float32 CUDA operands →
+    dq."""
+    _f32_only(q, "flash_bwd_dq_kernel")
     dq = torch.empty_like(q)
-    rc = _fn("flash_bwd_dq_launch", 7)(
+    rc = _fn("flash_bwd_dq_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_shape_args(q, k),
-        float(scale), int(causal), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        float(scale), int(causal), _DTYPES[q.dtype], _stream(q))
     _raise_on_error(rc, "flash_bwd_dq_kernel")
     flash_attention_bwd.launches["dq"] += 1
     return dq
 
 
 def bwd_dkv(q, k, v, lse, delta, dout, *, causal: bool, scale: float):
-    """Launch ``flash_bwd_dkv_kernel`` on checked CUDA operands →
+    """Launch ``flash_bwd_dkv_kernel`` on checked float32 CUDA operands →
     (dk, dv)."""
+    _f32_only(q, "flash_bwd_dkv_kernel")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _fn("flash_bwd_dkv_launch", 8)(
+    rc = _fn("flash_bwd_dkv_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_shape_args(q, k), float(scale), int(causal), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _stream(q))
     _raise_on_error(rc, "flash_bwd_dkv_kernel")
     flash_attention_bwd.launches["dkv"] += 1
     return dk, dv
 
 
 flash_attention_fwd.launches = 0
-flash_attention_bwd.launches = {"dq": 0, "dkv": 0}
+flash_attention_bwd.launches = {"bwd": 0, "dq": 0, "dkv": 0}

@@ -5,12 +5,13 @@
 
 Copies ``ray_tpu_torch`` into a temporary directory once unchanged and
 once per mutant in ``MUTANTS``, each planting one fault in the bf16 path
-of ``csrc/flash_attention.cu`` (the path training runs), builds every copy
+of ``csrc/flash_attention.cu`` (the path training runs: K1 and the one
+backward kernel ``flash_bwd_kernel``), builds every copy
 with nvcc (all started together), and runs each copy, one process at a
 time, through chip_smoke.py's two bf16 checks:
 
-- ``flash_compare``: K1, K2a and K2b against their plain versions at the
-  1b_bench shapes (B=8, Hq=32, Hkv=8, S=2048, D=64, causal), the inputs
+- ``flash_compare``: K1 and the backward against their plain versions at
+  the 1b_bench shapes (B=8, Hq=32, Hkv=8, S=2048, D=64, causal), the inputs
   of phase 6;
 - ``flash_grad_check``: the training path's attention gradients against
   autograd through the plain forward.
@@ -38,23 +39,22 @@ MUTANTS = {  # name: (text of flash_attention.cu, its replacement)
         "l[2] = {0.f, 0.f};\n"
         "  const int kv_end = (causal ? min(Skv, q0 + BQ) : Skv)\n"
         "                     - (q0 >= 1024 ? BKV : 0);"),
-    # K2a zeroes dS of one warp's 16 rows in the last kv tile of its loop
-    "dq_zeroes_ds_of_warp_3_in_last_tile": (
-        "        s[n][e] = p * (dp[n][e] - delta_r[i]);",
-        "        s[n][e] = ((threadIdx.x >> 5) == 3 && k0 + BKV >= kv_end)\n"
-        "                      ? 0.f : p * (dp[n][e] - delta_r[i]);"),
-    # K2b skips the last q tile of the last member of each GQA group
-    "dkv_skips_last_q_tile_of_one_group_member": (
-        "    for (int qt = q_first; qt < nqt; ++qt) {\n"
-        "      const int q0 = qt * BQ;\n"
-        "      __syncthreads();\n"
-        "      const size_t qoff = (bhq * Sq + q0) * D;\n"
-        "      stage_bf16",
-        "    for (int qt = q_first; qt < nqt - (gi == group - 1); ++qt) {\n"
-        "      const int q0 = qt * BQ;\n"
-        "      __syncthreads();\n"
-        "      const size_t qoff = (bhq * Sq + q0) * D;\n"
-        "      stage_bf16"),
+    # the backward zeroes dS of warpgroup 1's kv rows in the last q tile
+    "bwd_zeroes_ds_of_warpgroup_1_in_last_q_tile": (
+        "        dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - cDl[c]);",
+        "        dpt[4 * j + e] = (wg == 1 && qt == nqt - 1)\n"
+        "            ? 0.f : st[4 * j + e] * (dpt[4 * j + e] - cDl[c]);"),
+    # the backward skips the last q tile of the last member of each group
+    "bwd_skips_last_q_tile_of_one_group_member": (
+        "    const int qt = q_first + it % nq, q0 = qt * BQ;\n",
+        "    const int qt = q_first + it % nq, q0 = qt * BQ;\n"
+        "    if (it == n_iter - 1) continue;\n"),
+    # the backward drops one dQ reduce-add: one row half of the last pair
+    # of the first kv tile of each kv head
+    "bwd_drops_one_dq_reduce_add": (
+        "    if (lane < 16 && q0 + row < Sq) {",
+        "    if (lane < 16 && q0 + row < Sq\n"
+        "        && !(k0 == 0 && it == n_iter - 1 && tid == 0)) {"),
 }
 
 
