@@ -8,15 +8,17 @@ trains the 1B Llama.
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit;
   2. build: every CUDA source under ray_tpu_torch/csrc, one nvcc each, all
-     started together; registers and spills of each flash kernel as
-     ptxas reports them;
+     started together; registers and spills of each kernel as ptxas
+     reports them;
   3. kernels: each decode-attention kernel against its plain PyTorch
      version at the serving shapes, in bf16 and f32, with edge lengths
      (1, a block, a non-multiple, full, stale full+1, 0) and shuffled
-     block tables; times of kernel, plain version and the library
-     yardstick (F.scaled_dot_product_attention, timed here only), and the
-     least time the card could take (bytes over 3.35 TB/s, or operations
-     over the peak rate);
+     block tables, and bit for bit equal to itself in a second run;
+     times of kernel, plain version and the library yardstick
+     (F.scaled_dot_product_attention, timed here only; kernel and library
+     from a CUDA graph of 20 calls, since the wrapper's host time exceeds
+     the kernel's), and the least time the card could take (bytes over
+     3.35 TB/s, or operations over the peak rate);
   4. debug engine on the card (f32, paged with preemption and slot) gives
      the same greedy tokens as the same engine on the CPU;
   5. the 8b configuration served on the card through LLMEngine, paged then
@@ -28,7 +30,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      Hkv=8, S=2048, D=64, causal), at D=128, and at a ragged S=1000 with
      group 1, non-causal, row by row under the tolerance
      ops/flash_attention.py states, each call launching exactly the
-     kernels of its dtype; times of kernel (the bf16 backward with its
+     kernels of its dtype, K1 bit for bit equal to itself in a second
+     run; times of kernel (the bf16 backward with its
      workspace zeroing and cast), plain version and library yardstick
      (scaled_dot_product_attention and its autograd backward, timed here
      only), and the bound; then the training path's bf16 attention
@@ -67,19 +70,36 @@ def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(fns, iters=TIMED_ITERS):
+def time_ms(fns, iters=TIMED_ITERS, graph=False):
     """Mean device time of one call, rotating over ``fns`` (one closure
-    per input copy), by CUDA events after a warm-up."""
+    per input copy), by CUDA events after a warm-up. With ``graph`` the
+    ``iters`` calls are captured in one CUDA graph and replayed, so that
+    the host's launch time (tens of microseconds a wrapper call) does not
+    hide a kernel that runs for less."""
     import torch
 
     for fn in fns:
         fn()
     torch.cuda.synchronize()
+    g = None
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.cuda.graph(g):
+            for i in range(iters):
+                fns[i % len(fns)]()
+        torch.cuda.current_stream().wait_stream(side)
+        g.replay()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
+    if g is not None:
+        g.replay()
+    else:
+        for i in range(iters):
+            fns[i % len(fns)]()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -98,16 +118,17 @@ def bound_ms(rows, B, H, KV, D, itemsize, dtype_name, index_bytes):
 
 
 def kernel_label(mangled):
-    """flash_bwd_kernel<64>, flash_fwd_kernel<bf16,64>, ... from a
-    mangled kernel name."""
-    m = re.search(r"\d(flash_[a-z_]+?_kernel)I(.+?E)Ev", mangled)
+    """flash_bwd_kernel<64>, flash_fwd_kernel<bf16,64>,
+    paged_decode_attention_kernel<bf16,128,4>, ... from a mangled kernel
+    name."""
+    m = re.search(r"\d([a-z_]+?_kernel)I(.+?E)Ev", mangled)
     if not m:
         return mangled[:60]
     args = m.group(2)
-    kind = ("bf16," if "__nv_bfloat16" in args
-            else "f32," if args.startswith("f") else "")
-    dims = ",".join(re.findall(r"Li(\d+)E", args))
-    return f"{m.group(1)}<{kind}{dims}>"
+    kind = ("bf16" if "__nv_bfloat16" in args
+            else "f32" if args.startswith("f") else "")
+    return f"{m.group(1)}<" + ",".join(
+        [kind] * bool(kind) + re.findall(r"Li(\d+)E", args)) + ">"
 
 
 # ------------------------------------------------------------- phase 3
@@ -151,7 +172,10 @@ def kernel_checks(device, B=8, H=32, KV=8, D=128, bs=64, MBS=32, S=2048,
                  rand(NB, bs, KV, D).to(dt)) for _ in range(INPUT_COPIES)]
         q, kp, vp = sets[0]
         got = paged_decode_attention(q, kp, vp, tables, lengths, scale=scale)
+        again = paged_decode_attention(q, kp, vp, tables, lengths,
+                                       scale=scale)
         torch.cuda.synchronize()
+        assert torch.equal(got, again), "paged kernel: two runs differ"
         want = paged_attention_reference(q, kp, vp, tables, lengths,
                                          scale=scale)
         err = (got.float() - want.float()).abs().max().item()
@@ -166,14 +190,15 @@ def kernel_checks(device, B=8, H=32, KV=8, D=128, bs=64, MBS=32, S=2048,
         rec = {
             "max_abs_err": err, "tolerance": TOL[name],
             "ms": time_ms([lambda s=s: paged_decode_attention(
-                *s, tables, lengths, scale=scale) for s in sets]),
+                *s, tables, lengths, scale=scale) for s in sets], graph=True),
             "plain_ms": time_ms([lambda s=s: paged_attention_reference(
                 *s, tables, lengths, scale=scale) for s in sets]),
             # over the pre-gathered cache: no single library call takes a
             # block table
             "library_ms": time_ms([lambda g=g: F.scaled_dot_product_attention(
                 g[0], g[1], g[2], attn_mask=mask, scale=scale,
-                enable_gqa=True) for g in gathered]) if gqa else None,
+                enable_gqa=True) for g in gathered], graph=True)
+            if gqa else None,
         }
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             paged_rows, B, H, KV, D, q.element_size(), name,
@@ -195,13 +220,14 @@ def kernel_checks(device, B=8, H=32, KV=8, D=128, bs=64, MBS=32, S=2048,
         rec = {
             "max_abs_err": err, "tolerance": TOL[name],
             "ms": time_ms([lambda s=s: decode_attention(
-                *s, lengths, scale=scale) for s in csets]),
+                *s, lengths, scale=scale) for s in csets], graph=True),
             "plain_ms": time_ms([lambda s=s: decode_attention_reference(
                 *s, lengths, scale=scale) for s in csets]),
             "library_ms": time_ms([lambda s=s: F.scaled_dot_product_attention(
                 s[0].transpose(1, 2), s[1].transpose(1, 2),
                 s[2].transpose(1, 2), attn_mask=smask, scale=scale,
-                enable_gqa=True) for s in csets]) if gqa else None,
+                enable_gqa=True) for s in csets], graph=True)
+            if gqa else None,
         }
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             slot_rows, B, H, KV, D, q.element_size(), name,
@@ -416,7 +442,11 @@ def flash_compare(q, k, v, do, causal):
 
     kw = dict(causal=causal, scale=q.shape[-1] ** -0.5)
     got_out, got_lse = fa.flash_attention_fwd(q, k, v, **kw)
+    again = fa.flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
+    assert torch.equal(got_out, again[0]) and torch.equal(got_lse, again[1]), \
+        "K1: two runs differ"
+    del again
     want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
     delta = (do.float() * want_out.float()).sum(-1)
     bwd_args = (q, k, v, want_lse, delta, do)
@@ -692,8 +722,9 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t
     log(f"[2] build: {built} in {report['build_s']:.2f} s")
     report["ptxas"] = {
-        kernel_label(name): res for name, res in _build.kernel_resources(
-            _build.LOGS.get("flash_attention", "")).items()}
+        kernel_label(name): res for src in _build.sources()
+        for name, res in _build.kernel_resources(
+            _build.LOGS.get(src, "")).items()}
     log("[2] ptxas (registers, spill stores/loads in bytes): " + json.dumps(
         report["ptxas"]))
 

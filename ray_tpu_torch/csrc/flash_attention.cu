@@ -25,15 +25,27 @@
 // ~295 flop/byte ridge, so its least time is 0.139 ms at 989 TFLOP/s of
 // bf16. The backward's five products need 343.8 GFLOP, 0.348 ms.
 //
-// Forward design (simple and right first): one block of 4 warps per
-// (b*H, 64-row q tile); each warp owns 16 rows and keeps scores,
-// probabilities and accumulators in registers in the mma.sync m16n8k16
-// fragment layout (bf16 operands, f32 accumulation), so S and P never touch
-// shared memory: the C fragment of S is repacked in registers as the A
-// fragment of P V. Operand tiles are staged to shared memory with 16-byte
-// loads, rows padded by 8 elements so fragment loads hit distinct banks.
-// The causal loop stops at the diagonal; the grid starts with the heaviest
-// q tiles.
+// bfloat16 forward design (flash_fwd_kernel<bf16, D>; FlashAttention-3's
+// forward without its producer warp): one block of two warpgroups per
+// (b*Hq, 128-row q tile), each warpgroup owning 64 q rows, so that a K/V
+// tile in shared memory serves 128 rows; the grid starts with every
+// head's heaviest causal q tile. Both products are wgmma (bf16 in, f32
+// accumulated): S = Q K^T with Q and K K-major from shared memory, and
+// O += P V with P repacked in registers from S's accumulators (rounded to
+// bf16, as the TPU kernel does) and V read MN-major through the transpose
+// bit. Thread 0 loads Q and a ring of three K/V stages by TMA, one
+// mbarrier a stage: tiles land as 128/64/32-byte swizzled blocks, wgmma's
+// swizzled layouts, and rows past Sq or Skv read as zeros. S of tile i and
+// P V of tile i - 1 are issued together, so that P V runs on the tensor
+// cores while the warpgroup takes the softmax of S (exp2 with
+// scale*log2(e) folded into one FMA; masks only on tiles that cross the
+// diagonal or the ragged tail). Kv tiles are 64 rows below D = 128 (under
+// 128 registers a thread: two blocks an SM) and 128 at D = 128. At
+// 1b_bench the kernel runs at about 1.3x cuDNN's forward; what holds it
+// back is the softmax, not loads or products (scripts/flash_fwd_ablation.py,
+// PERF.md): without exp2 and masks it takes about a quarter less time,
+// without K/V loads after the first tiles or without the P V product no
+// less.
 //
 // bfloat16 backward design (flash_bwd_kernel; FlashAttention-2/3's
 // backward): one block of two warpgroups per (b*Hkv, 128-row kv tile)
@@ -46,9 +58,8 @@
 // Tiles sit in shared memory as wgmma's no-swizzle core matrices, which
 // one tile serves both untransposed (S^T, dP^T) and transposed (dV, dK,
 // dQ). Loads are cp.async into a double buffer: the next pair's Q, dO, lse
-// and delta land while the current pair computes (not TMA: cp.async
-// writes the core-matrix layout at every D without tensor maps from the
-// driver API). dK and dV stay in registers over the whole GQA group
+// and delta land while the current pair computes (TMA loads, as the
+// forward's, are untried here). dK and dV stay in registers over the whole GQA group
 // (deterministic, no atomics). Each pair's dQ tile goes through a
 // warp-private patch of shared memory into an f32 workspace by bulk
 // (TMA) reduce-adds, cp.reduce.async.bulk .add.f32, one per row: the adds
@@ -66,16 +77,17 @@
 // with its mirror per block, did not make it faster.
 //
 // The float32 instantiations (the forward, and the backward as
-// flash_bwd_dq_kernel and flash_bwd_dkv_kernel) run the same loops on CUDA
-// cores with f32 FMA (no TF32): 32-row tiles, 4 threads per row.
+// flash_bwd_dq_kernel and flash_bwd_dkv_kernel), chosen by dtype, run the
+// same loops on CUDA cores with f32 FMA (no TF32; wgmma has no f32
+// operands): 32-row tiles, 4 threads per row.
 //
 // Precision of bfloat16: P is rounded to bf16 before P V, as the TPU kernel
 // does. The TPU backward takes dS K, dS^T Q and P^T dO in f32; here P and dS
 // are rounded to bf16 for the tensor cores (relative error 2^-9 per term),
 // so each row of out/dq/dk/dv is held to 2e-2 of its own norm against the
 // f32 plain version, the tolerance ops/flash_attention.py states.
-// Left for the forward: wgmma, copy/compute overlap, exp2.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,18 +104,8 @@ constexpr int kMaxSmem = 232448;           // bytes a block may use on H100
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-template <typename T, int D>
-struct Cfg;
-
 template <int D>
-struct Cfg<bf16, D> {
-  static constexpr int BQ = 64, BKV = 64;
-  static constexpr int LD = D + 8;
-  static constexpr size_t fwd_smem = (BQ + 2 * BKV) * LD * sizeof(bf16);
-};
-
-template <int D>
-struct Cfg<float, D> {
+struct SimtCfg {
   static constexpr int BQ = 32, BKV = 32, BQ_DKV = 32;
   static constexpr int LD = D + 1;
   static constexpr size_t fwd_smem =
@@ -130,211 +132,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-// c += a * b for one 16x8x16 tile: bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragment (16 x 16) at rows r0.., columns k0.. of a row-major tile.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* s, int ld,
-                                       int r0, int k0, int lane) {
-  const bf16* p = s + (r0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// B fragment (16 x 8, k x n) of X^T, X stored row-major as [n][k].
-__device__ __forceinline__ void load_b_nk(uint32_t* b, const bf16* s, int ld,
-                                          int n0, int k0, int lane) {
-  const bf16* p = s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment (16 x 8, k x n) of X, X stored row-major as [k][n].
-__device__ __forceinline__ void load_b_kn(uint32_t* b, const bf16* s, int ld,
-                                          int k0, int n0, int lane) {
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(s);
-  const int i = (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
-  b[0] = static_cast<uint32_t>(u[i]) | (static_cast<uint32_t>(u[i + ld]) << 16);
-  b[1] = static_cast<uint32_t>(u[i + 8 * ld])
-         | (static_cast<uint32_t>(u[i + 9 * ld]) << 16);
-}
-
-// Copy `nrows` rows of D elements into shared rows of D + 8, zero past
-// `avail` rows (the ragged tail is never read from device memory).
-template <int D>
-__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src,
-                                           int avail, int nrows) {
-  constexpr int C = D / 8;
-  for (int i = threadIdx.x; i < nrows * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < avail) v = reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D)[c];
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = v;
-  }
-}
-
-// S (16 x 8*N per warp) = A rows [r0, r0+16) of sA times B^T, B = sB [n][k].
-template <int D, int N>
-__device__ __forceinline__ void warp_abt(float (*s)[4], const bf16* sA,
-                                         const bf16* sB, int r0, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int n = 0; n < N; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    uint32_t a[4];
-    load_a(a, sA, LD, r0, kk, lane);
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      uint32_t b[2];
-      load_b_nk(b, sB, LD, n * 8, kk, lane);
-      mma16816(s[n], a, b);
-    }
-  }
-}
-
-// acc (16 x D) += P (16 x 8*N, C fragments, rounded to bf16) times sB
-// ([k][n] row-major, k over the N*8 columns of P).
-template <int D, int N>
-__device__ __forceinline__ void warp_pb(float (*acc)[4], float (*p)[4],
-                                        const bf16* sB, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < N / 2; ++kk) {
-    uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                     pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                     pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                     pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      uint32_t b[2];
-      load_b_kn(b, sB, LD, kk * 16, dn * 8, lane);
-      mma16816(acc[dn], a, b);
-    }
-  }
-}
-
-// Store a warp's 16 x D accumulator rows (times `mul`) as bf16; rows from
-// `row0` (this thread's first row) and row0 + 8, only those below `limit`.
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(bf16* dst, float (*acc)[4],
-                                                int row0, int limit,
-                                                float mul0, float mul1,
-                                                int lane) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row0 + 8 * i;
-    if (r >= limit) continue;
-    const float mul = i ? mul1 : mul0;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const int col = dn * 8 + 2 * (lane & 3);
-      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r) * D + col) =
-          pack_bf16(acc[dn][2 * i] * mul, acc[dn][2 * i + 1] * mul);
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void fwd_mma(const bf16* __restrict__ q,
-                                        const bf16* __restrict__ k,
-                                        const bf16* __restrict__ v,
-                                        bf16* __restrict__ out,
-                                        float* __restrict__ lse, int Hq,
-                                        int Hkv, int Sq, int Skv, float scale,
-                                        int causal, unsigned char* smem) {
-  using C = Cfg<bf16, D>;
-  constexpr int BQ = C::BQ, BKV = C::BKV, LD = C::LD, NS = BKV / 8;
-  const int qt = gridDim.x - 1 - blockIdx.x;     // heaviest tiles first
-  const int bh = blockIdx.y;
-  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
-  const int q0 = qt * BQ;
-  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
-  const int t = lane & 3;
-  const int r_lo = q0 + wr + (lane >> 2);
-
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LD;
-  bf16* sV = sK + BKV * LD;
-  const bf16* kb = k + static_cast<size_t>(kvh) * Skv * D;
-  const bf16* vb = v + static_cast<size_t>(kvh) * Skv * D;
-  stage_bf16<D>(sQ, q + (static_cast<size_t>(bh) * Sq + q0) * D, Sq - q0, BQ);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();
-    stage_bf16<D>(sK, kb + static_cast<size_t>(k0) * D, Skv - k0, BKV);
-    stage_bf16<D>(sV, vb + static_cast<size_t>(k0) * D, Skv - k0, BKV);
-    __syncthreads();
-    float s[NS][4];
-    warp_abt<D, NS>(s, sQ, sK, wr, lane);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const int r = r_lo + (e >> 1) * 8;
-        const bool ok = col < Skv && (!causal || r >= col);
-        s[n][e] = ok ? s[n][e] * scale : neg_inf();
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        l[e >> 1] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      o[dn][0] *= alpha[0]; o[dn][1] *= alpha[0];
-      o[dn][2] *= alpha[1]; o[dn][3] *= alpha[1];
-    }
-    warp_pb<D, NS>(o, s, sV, lane);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] = quad_sum(l[i]);
-    inv[i] = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-    const int r = r_lo + 8 * i;
-    if (t == 0 && r < Sq) {
-      lse[static_cast<size_t>(bh) * Sq + r] =
-          l[i] == 0.f ? kNegInf : m[i] + logf(l[i]);
-    }
-  }
-  store_rows_bf16<D>(out + static_cast<size_t>(bh) * Sq * D, o, r_lo, Sq,
-                     inv[0], inv[1], lane);
-}
-
-// ------------------------------------------------------------------ bf16 backward
 
 // wgmma m64nNk16, bf16 operands, f32 accumulators d[N/2] in the C fragment
 // layout (warp w of the warpgroup holds rows 16w + lane/4 and + 8; chunk j
@@ -597,6 +394,300 @@ __device__ __forceinline__ void stage_vec(float* dst, const float* src,
                                           int avail, int n, int tid) {
   for (int i = tid; i < n; i += NT) {
     cp_async4(dst + i, i < avail ? src + i : src, i < avail);
+  }
+}
+
+template <typename T, int D>
+struct FwdCfg {                                  // float: fwd_simt
+  static constexpr int BQ = SimtCfg<D>::BQ, NT = kThreads;
+  static constexpr size_t smem = SimtCfg<D>::fwd_smem;
+};
+
+template <int D>
+struct FwdCfg<bf16, D> {
+  // 128 q rows a block, 64 a warpgroup, so that each K/V tile serves 128
+  // rows. 64 kv rows a tile below D = 128 keep a thread under 128
+  // registers, so two blocks share an SM (128 took 180 registers at D = 64,
+  // one block an SM, and was slower). K and V in a ring of STAGES; tile
+  // it + AHEAD loads while tile it computes, into the stage of tile it - 2,
+  // whose P V product completed in the last iteration.
+  static constexpr int BQ = 128, BKV = D < 128 ? 64 : 128, NT = 256;
+  static constexpr int STAGES = 3, AHEAD = STAGES - 2;
+  // tiles start on 1024-byte boundaries (the swizzle atom): 1024 bytes
+  // of slack for aligning the dynamic shared memory
+  static constexpr size_t smem =
+      (BQ + 2 * STAGES * BKV) * D * sizeof(bf16) + 1024;
+};
+
+// Tiles of the bf16 forward are loaded by TMA in swizzled blocks of
+// `BYTES`-byte rows (128, or the whole row when it is shorter): a tile of
+// R rows is D / COLS blocks of R x COLS, one after the other, as wgmma's
+// swizzled layouts read them.
+template <int D>
+struct Swz {
+  static constexpr int BYTES = D >= 64 ? 128 : 2 * D;
+  static constexpr int COLS = BYTES / 2;
+  static constexpr uint64_t LAYOUT = BYTES == 128 ? 1 : BYTES == 64 ? 2 : 3;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ uint64_t swz_desc(const bf16* p, uint32_t lbo,
+                                             uint32_t sbo, uint64_t layout) {
+  return smem_desc(p, lbo, sbo) | (layout << 62);
+}
+// K-major operand rows [r0, r0 + 64) x columns [16 kk, 16 kk + 16) of a
+// swizzled tile of R rows: the next 8 rows are 8 swizzled rows on.
+template <int D, int R>
+__device__ __forceinline__ uint64_t swz_desc_k(const bf16* tile, int r0,
+                                               int kk) {
+  using S = Swz<D>;
+  return swz_desc(tile + (16 * kk / S::COLS) * R * S::COLS + r0 * S::COLS
+                      + 16 * kk % S::COLS,
+                  16, 8 * S::BYTES, S::LAYOUT);
+}
+// MN-major operand: K along rows [16 kk, 16 kk + 16), N the COLS columns
+// of block h; the next 8 K rows are 8 swizzled rows on.
+template <int D, int R>
+__device__ __forceinline__ uint64_t swz_desc_mn(const bf16* tile, int kk,
+                                                int h) {
+  using S = Swz<D>;
+  return swz_desc(tile + h * R * S::COLS + 16 * kk * S::COLS,
+                  R * S::BYTES, 8 * S::BYTES, S::LAYOUT);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+// One box of a 3-D tensor map (columns, rows, heads) into shared memory;
+// its bytes complete a transaction of `bar`.
+__device__ __forceinline__ void tma_load_3d(bf16* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// The bf16 forward: one block of two warpgroups per (b * Hq, 128-row q
+// tile), warpgroup wg owning q rows [64 wg, 64 wg + 64) of the tile. Q
+// stays in shared memory; the block walks the kv tiles up to the causal
+// diagonal, thread 0 loading tile it + AHEAD by TMA (a ring of STAGES,
+// each with an mbarrier that its bytes complete) while tile it computes:
+//   S = Q K^T                 wgmma ss, 64 x BKV per warpgroup, K = D
+//   P = exp2(S scale log2e - m), the running max m and sum l per row
+//   O = O alpha + P V         wgmma rs (P in registers, rounded to bf16),
+//                             V MN-major through the transpose bit
+// S of tile it and P V of tile it - 1 are issued together, so the tensor
+// cores run P V while the warpgroup takes the softmax of S (FlashAttention-
+// 3's intra-warpgroup overlap); O is rescaled once P V has completed. TMA
+// zero-fills the rows past Sq and Skv.
+template <int D>
+__device__ __forceinline__ void fwd_wgmma(const CUtensorMap* tq,
+                                          const CUtensorMap* tk,
+                                          const CUtensorMap* tv,
+                                          bf16* __restrict__ out,
+                                          float* __restrict__ lse, int Hq,
+                                          int Hkv, int Sq, int Skv,
+                                          float scale, int causal,
+                                          unsigned char* smem) {
+  using C = FwdCfg<bf16, D>;
+  using SW = Swz<D>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, ST = C::STAGES;
+  constexpr int AHEAD = C::AHEAD;
+  constexpr int DN = SW::COLS;                   // N of one P V wgmma
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr float kLn2 = 0.6931471805599453f;
+  __shared__ uint64_t full[ST + 1];              // each stage's, then Q's
+  bf16* sQ = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
+  bf16* sK = sQ + BQ * D;                        // ST stages
+  bf16* sV = sK + ST * BKV * D;                  // ST stages
+
+  const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest tiles first
+  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+  const int qw0 = q0 + 64 * wg;                  // this warpgroup's rows
+  const int r0 = qw0 + 16 * w + g;               // this thread's: r0, r0 + 8
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  const int n_kv = (kv_end + BKV - 1) / BKV;
+
+  auto load_kv = [&](int it) {                   // thread 0 only
+    if (it >= n_kv) return;
+    const int st = it % ST;
+    mbar_expect_tx(&full[st], 2 * BKV * D * sizeof(bf16));
+#pragma unroll
+    for (int b = 0; b < D / SW::COLS; ++b) {
+      tma_load_3d(sK + st * BKV * D + b * BKV * SW::COLS, tk, &full[st],
+                  b * SW::COLS, it * BKV, kvh);
+      tma_load_3d(sV + st * BKV * D + b * BKV * SW::COLS, tv, &full[st],
+                  b * SW::COLS, it * BKV, kvh);
+    }
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= ST; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&full[ST], BQ * D * sizeof(bf16));
+#pragma unroll
+    for (int b = 0; b < D / SW::COLS; ++b) {
+      tma_load_3d(sQ + b * BQ * SW::COLS, tq, &full[ST], b * SW::COLS, q0,
+                  bh);
+    }
+#pragma unroll
+    for (int it = 0; it < AHEAD; ++it) load_kv(it);
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // running max (of the scores times scale log2e) and sum, rows r0, r0 + 8
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+  const float sl2 = scale * kLog2e;
+  float s[BKV / 2];
+  uint32_t pa[BKV / 16][4];                      // P of the previous tile
+
+  mbar_wait(&full[ST], 0);
+  for (int it = 0; it < n_kv; ++it) {
+    __syncthreads();             // tile it - 2 is done: its stage is free
+    if (tid == 0) load_kv(it + AHEAD);
+    mbar_wait(&full[it % ST], (it / ST) & 1);   // tile it landed
+    const int k0 = it * BKV;
+    const bf16* cK = sK + (it % ST) * BKV * D;
+    const bf16* pV = sV + ((it + ST - 1) % ST) * BKV * D;   // tile it - 1
+
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < BKV / 64; ++h) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        Wgmma<64>::template ss<0, 0>(
+            s + 32 * h, swz_desc_k<D, BQ>(sQ, 64 * wg, kk),
+            swz_desc_k<D, BKV>(cK, 64 * h, kk), kk > 0);
+      }
+    }
+    wgmma_commit();
+    if (it > 0) {
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+#pragma unroll
+        for (int h = 0; h < D / DN; ++h) {
+          Wgmma<DN>::template rs<1>(o + h * DN / 2, pa[kk],
+                                    swz_desc_mn<D, BKV>(pV, kk, h), 1);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();             // S landed; P V may still run
+    reg_fence<BKV / 2>(s);
+
+    // Masks only on tiles that cross the diagonal or the ragged kv tail.
+    const bool edge = (causal && k0 + BKV - 1 > qw0) || k0 + BKV > Skv;
+    float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = r0 + 8 * (e >> 1);
+          if (col >= Skv || (causal && col > row)) s[4 * j + e] = neg_inf();
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+      }
+    }
+    float alpha[2], base[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]) * sl2);
+      // exponents are taken from a finite base: a row with no unmasked
+      // column so far keeps m = -inf, p = 0 and alpha = 0
+      base[i] = m_new == neg_inf() ? 0.f : m_new;
+      alpha[i] = fast_exp2(m[i] - base[i]);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(fmaf(s[4 * j + e], sl2, -base[e >> 1]));
+        s[4 * j + e] = p;
+        l[e >> 1] += p;
+      }
+    }
+    wgmma_wait<0>();             // P V of tile it - 1 done: O and P are free
+    reg_fence<D / 2>(o);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    // P as bf16 A fragments, one per 16 kv rows
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+      }
+    }
+  }
+  const bf16* lV = sV + ((n_kv - 1) % ST) * BKV * D;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk) {
+#pragma unroll
+    for (int h = 0; h < D / DN; ++h) {
+      Wgmma<DN>::template rs<1>(o + h * DN / 2, pa[kk],
+                                swz_desc_mn<D, BKV>(lV, kk, h), 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence<D / 2>(o);
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float sum = quad_sum(l[i]);
+    inv[i] = sum == 0.f ? 0.f : 1.f / sum;
+    const int r = r0 + 8 * i;
+    if (t == 0 && r < Sq) {
+      lse[static_cast<size_t>(bh) * Sq + r] =
+          sum == 0.f ? kNegInf : (m[i] + log2f(sum)) * kLn2;
+    }
+  }
+  bf16* ob = out + static_cast<size_t>(bh) * Sq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r) * D + 8 * j
+                                   + 2 * t) =
+          pack_bf16(o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
+    }
   }
 }
 
@@ -875,7 +966,7 @@ __device__ __forceinline__ void fwd_simt(const float* __restrict__ q,
                                          int Hkv, int Sq, int Skv,
                                          float scale, int causal,
                                          unsigned char* smem) {
-  using C = Cfg<float, D>;
+  using C = SimtCfg<D>;
   constexpr int BQ = C::BQ, BKV = C::BKV, LD = C::LD, NC = BKV / 4;
   constexpr int ND = D / 4, LP = BKV + 1;
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -955,7 +1046,7 @@ __device__ __forceinline__ void dq_simt(const float* __restrict__ q,
                                         float* __restrict__ dq, int Hq,
                                         int Hkv, int Sq, int Skv, float scale,
                                         int causal, unsigned char* smem) {
-  using C = Cfg<float, D>;
+  using C = SimtCfg<D>;
   constexpr int BQ = C::BQ, BKV = C::BKV, LD = C::LD, NC = BKV / 4;
   constexpr int ND = D / 4, LP = BKV + 1;
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -1028,7 +1119,7 @@ __device__ __forceinline__ void dkv_simt(const float* __restrict__ q,
                                          int Hkv, int Sq, int Skv,
                                          float scale, int causal,
                                          unsigned char* smem) {
-  using C = Cfg<float, D>;
+  using C = SimtCfg<D>;
   constexpr int BQ = C::BQ_DKV, BKV = C::BKV, LD = C::LD, NC = BQ / 4;
   constexpr int ND = D / 4, LP = BQ + 1;
   const int bkv = blockIdx.y;
@@ -1107,15 +1198,23 @@ __device__ __forceinline__ void dkv_simt(const float* __restrict__ q,
 
 // ------------------------------------------------------------------ kernels
 
+// f32 takes fwd_simt and bf16 fwd_wgmma, by type: wgmma has no f32
+// operands, and the f32 debug model trains card == CPU through fwd_simt.
+// (bf16 reads q, k and v through the tensor maps tq, tk, tv; f32 through
+// the pointers.)
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* q, const T* k, const T* v, T* out, float* lse,
-                 int Hq, int Hkv, int Sq, int Skv, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__global__ void __launch_bounds__(FwdCfg<T, D>::NT)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const T* q,
+                 const T* k, const T* v, T* out, float* lse, int Hq, int Hkv,
+                 int Sq, int Skv, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char fwd_smem[];
   if constexpr (std::is_same<T, float>::value) {
-    fwd_simt<D>(q, k, v, out, lse, Hq, Hkv, Sq, Skv, scale, causal, smem);
+    fwd_simt<D>(q, k, v, out, lse, Hq, Hkv, Sq, Skv, scale, causal, fwd_smem);
   } else {
-    fwd_mma<D>(q, k, v, out, lse, Hq, Hkv, Sq, Skv, scale, causal, smem);
+    fwd_wgmma<D>(&tq, &tk, &tv, out, lse, Hq, Hkv, Sq, Skv, scale, causal,
+                 fwd_smem);
   }
 }
 
@@ -1164,16 +1263,83 @@ cudaError_t prepare(K kernel, size_t smem) {
   return cudaSuccess;
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime (no link
+// to libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &found)
+            == cudaSuccess
+        && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A bf16 (heads, rows, D) tensor as a 3-D tensor map whose box is one
+// swizzled block of a tile: Swz<D>::COLS columns of box_rows rows. Rows
+// past `rows` read as zeros.
+template <int D>
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int heads,
+                       int rows, int box_rows) {
+  using S = Swz<D>;
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {D * sizeof(bf16),
+                                 static_cast<cuuint64_t>(rows) * D
+                                     * sizeof(bf16)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(S::COLS),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      S::BYTES == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : S::BYTES == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 void* lse, Shape s, float scale, int causal,
                 cudaStream_t st) {
-  using C = Cfg<T, D>;
-  cudaError_t err = prepare(flash_fwd_kernel<T, D>, C::fwd_smem);
+  using C = FwdCfg<T, D>;
+  cudaError_t err = prepare(flash_fwd_kernel<T, D>, C::smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s.Sq + C::BQ - 1) / C::BQ, s.B * s.Hq);
-  flash_fwd_kernel<T, D><<<grid, kThreads, C::fwd_smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
+  const int nq = (s.Sq + C::BQ - 1) / C::BQ;
+  CUtensorMap tq{}, tk{}, tv{};
+  if constexpr (std::is_same<T, bf16>::value) {
+    if ((err = tensor_map<D>(&tq, q, s.B * s.Hq, s.Sq, C::BQ)) != cudaSuccess
+        || (err = tensor_map<D>(&tk, k, s.B * s.Hkv, s.Skv, C::BKV))
+               != cudaSuccess
+        || (err = tensor_map<D>(&tv, v, s.B * s.Hkv, s.Skv, C::BKV))
+               != cudaSuccess) {
+      return err;
+    }
+  }
+  // bf16: q tiles slowest, so every head's heaviest causal tiles go first
+  const dim3 grid = std::is_same<T, float>::value ? dim3(nq, s.B * s.Hq)
+                                                  : dim3(s.B * s.Hq, nq);
+  flash_fwd_kernel<T, D><<<grid, C::NT, C::smem, st>>>(
+      tq, tk, tv, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), s.Hq, s.Hkv, s.Sq, s.Skv, scale, causal);
   return cudaGetLastError();
@@ -1184,7 +1350,7 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, Shape s, float scale, int causal,
                    cudaStream_t st) {
-  using C = Cfg<float, D>;
+  using C = SimtCfg<D>;
   cudaError_t err = prepare(flash_bwd_dq_kernel<D>, C::dq_smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s.Sq + C::BQ - 1) / C::BQ, s.B * s.Hq);
@@ -1201,7 +1367,7 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, Shape s, float scale, int causal,
                     cudaStream_t st) {
-  using C = Cfg<float, D>;
+  using C = SimtCfg<D>;
   cudaError_t err = prepare(flash_bwd_dkv_kernel<D>, C::dkv_smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s.Skv + C::BKV - 1) / C::BKV, s.B * s.Hkv);

@@ -23,6 +23,9 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# tensors (q, caches, lengths, out); B, H, KV, D, S; scale, dtype, stream
+ARGTYPES = {"decode_attention_launch": [_P] * 5 + [_I] * 5 + [_F, _I, _P]}
 
 
 def decode_attention_reference(q, k_cache, v_cache, lengths, *,
@@ -98,8 +101,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: float):
     out = torch.empty_like(q)
     fn = _build.load("decode_attention").decode_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ARGTYPES["decode_attention_launch"]
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), B, H, KV, D, S, float(scale),
             dtype, torch.cuda.current_stream(q.device).cuda_stream)

@@ -13,9 +13,11 @@ Layout contract:
     lengths  (B,) int32      valid tokens per slot (incl. the new token)
 
 On a CUDA tensor :func:`paged_decode_attention` launches the hand-written
-kernel ``paged_decode_attention_kernel`` of
-``ray_tpu_torch/csrc/decode_attention.cu``; on a CPU tensor it computes the
-plain version :func:`paged_attention_reference`.
+split-KV kernel ``paged_decode_attention_kernel`` of
+``ray_tpu_torch/csrc/decode_attention.cu`` (one kernel a call; each split
+of :data:`SPLIT_ROWS` rows writes a partial to a workspace kept per device,
+and the last split of a slot and kv head to finish combines them); on a CPU
+tensor it computes the plain version :func:`paged_attention_reference`.
 """
 
 from __future__ import annotations
@@ -28,6 +30,15 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.decode_attention import check_operands, raise_on_error
 
 NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)      # the kernel's instantiations
+GROUPS = (1, 2, 4, 8)
+SPLIT_ROWS = 128                   # rows of one split, in whole pool blocks
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# tensors (q, pools, tables, lengths, out, partials, arrivals); B, H, KV, D,
+# block size, MBS, blocks per split; scale, dtype, stream
+ARGTYPES = {"paged_decode_attention_launch":
+            [_P] * 8 + [_I] * 7 + [_F, _I, _P]}
 
 
 def paged_attention_reference(q, k_pool, v_pool, tables, lengths, *,
@@ -56,6 +67,26 @@ def paged_attention_reference(q, k_pool, v_pool, tables, lengths, *,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def blocks_per_split(block_size: int) -> int:
+    return max(1, SPLIT_ROWS // block_size)
+
+
+# device -> (arrivals, partials): the kernel's int32 tickets, which hold
+# zeros between calls (the last split resets its own), and its f32 partials;
+# grown as needed, shared by the calls on a device, which run in stream order
+_scratch = {}
+
+
+def _workspace(device, n_arrivals: int, n_partials: int):
+    arrivals, partials = _scratch.get(device, (None, None))
+    if arrivals is None or arrivals.numel() < n_arrivals:
+        arrivals = torch.zeros(n_arrivals, dtype=torch.int32, device=device)
+    if partials is None or partials.numel() < n_partials:
+        partials = torch.empty(n_partials, dtype=torch.float32, device=device)
+    _scratch[device] = arrivals, partials
+    return arrivals, partials
+
+
 def paged_decode_attention(q, k_pool, v_pool, tables, lengths, *,
                            scale: float):
     """q (B,1,H,D); k/v_pool (NB,bs,KV,D); tables (B,MBS) int32;
@@ -76,14 +107,22 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths, *,
             or tables.shape != (B, MBS) or lengths.shape != (B,):
         raise ValueError("paged_decode_attention: shapes do not match the "
                          "layout contract")
+    if D not in HEAD_DIMS or H // KV not in GROUPS:
+        raise ValueError(f"paged_decode_attention_kernel takes head_dim in "
+                         f"{HEAD_DIMS} and groups in {GROUPS}, got {D}, "
+                         f"{H // KV}")
+    bps = blocks_per_split(bs)
+    splits = -(-MBS // bps)
+    arrivals, partials = _workspace(q.device, B * KV,
+                                    B * H * splits * (D + 2))
     out = torch.empty_like(q)
     fn = _build.load("decode_attention").paged_decode_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ARGTYPES["paged_decode_attention_launch"]
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, KV,
-            D, bs, MBS, float(scale), dtype,
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            partials.data_ptr(), arrivals.data_ptr(), B, H, KV, D, bs, MBS,
+            bps, float(scale), dtype,
             torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(rc, "paged_decode_attention_kernel")
     paged_decode_attention.launches += 1

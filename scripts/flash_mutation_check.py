@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
-"""Do the flash-attention checks of chip_smoke.py catch a wrong kernel?
+"""Do the kernel checks of chip_smoke.py catch a wrong kernel?
 
     python3 scripts/flash_mutation_check.py
 
 Copies ``ray_tpu_torch`` into a temporary directory once unchanged and
 once per mutant in ``MUTANTS``, each planting one fault in the bf16 path
 of ``csrc/flash_attention.cu`` (the path training runs: K1 and the one
-backward kernel ``flash_bwd_kernel``), builds every copy
-with nvcc (all started together), and runs each copy, one process at a
-time, through chip_smoke.py's two bf16 checks:
+backward kernel ``flash_bwd_kernel``) or in the paged decode kernel of
+``csrc/decode_attention.cu`` (K3, the path serving runs), builds every
+copy with nvcc (all started together), and runs each copy, one process at
+a time, through three checks of chip_smoke.py:
 
 - ``flash_compare``: K1 and the backward against their plain versions at
   the 1b_bench shapes (B=8, Hq=32, Hkv=8, S=2048, D=64, causal), the inputs
   of phase 6;
 - ``flash_grad_check``: the training path's attention gradients against
-  autograd through the plain forward.
+  autograd through the plain forward;
+- ``kernel_checks``: phase 3, K3 and K4 against their plain versions at
+  the 8b decode shapes ("decode" fails when one of its asserts does).
 
 Prints one JSON object, each result's mismatch per copy, and exits 1
-unless the unchanged copy passes both checks and every mutant fails one.
+unless the unchanged copy passes every check and every mutant fails one.
 Needs one CUDA card and nvcc; writes only under its temporary directory.
 """
 
@@ -29,37 +32,50 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join("ray_tpu_torch", "csrc", "flash_attention.cu")
+FLASH = os.path.join("ray_tpu_torch", "csrc", "flash_attention.cu")
+DECODE = os.path.join("ray_tpu_torch", "csrc", "decode_attention.cu")
 
-MUTANTS = {  # name: (text of flash_attention.cu, its replacement)
+MUTANTS = {  # name: (source, its text, the replacement)
     # K1 drops the diagonal kv tile for every q tile from row 1024 on
     "fwd_skips_diagonal_tile_past_row_1024": (
-        "l[2] = {0.f, 0.f};\n"
-        "  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;",
-        "l[2] = {0.f, 0.f};\n"
-        "  const int kv_end = (causal ? min(Skv, q0 + BQ) : Skv)\n"
-        "                     - (q0 >= 1024 ? BKV : 0);"),
+        FLASH,
+        "  const int n_kv = (kv_end + BKV - 1) / BKV;\n",
+        "  const int n_kv = (kv_end + BKV - 1) / BKV - (causal && q0 >= 1024);\n"),
+    # K1 does not rescale warpgroup 1's accumulators when the max grows
+    "fwd_skips_alpha_rescale_in_warpgroup_1": (
+        FLASH,
+        "    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];",
+        "    for (int i = 0; i < D / 2; ++i)\n"
+        "      o[i] *= wg == 1 ? 1.f : alpha[(i >> 1) & 1];"),
     # the backward zeroes dS of warpgroup 1's kv rows in the last q tile
     "bwd_zeroes_ds_of_warpgroup_1_in_last_q_tile": (
+        FLASH,
         "        dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - cDl[c]);",
         "        dpt[4 * j + e] = (wg == 1 && qt == nqt - 1)\n"
         "            ? 0.f : st[4 * j + e] * (dpt[4 * j + e] - cDl[c]);"),
     # the backward skips the last q tile of the last member of each group
     "bwd_skips_last_q_tile_of_one_group_member": (
+        FLASH,
         "    const int qt = q_first + it % nq, q0 = qt * BQ;\n",
         "    const int qt = q_first + it % nq, q0 = qt * BQ;\n"
         "    if (it == n_iter - 1) continue;\n"),
     # the backward drops one dQ reduce-add: one row half of the last pair
     # of the first kv tile of each kv head
     "bwd_drops_one_dq_reduce_add": (
+        FLASH,
         "    if (lane < 16 && q0 + row < Sq) {",
         "    if (lane < 16 && q0 + row < Sq\n"
         "        && !(k0 == 0 && it == n_iter - 1 && tid == 0)) {"),
+    # K3's combine leaves out the last split's partial
+    "paged_drops_last_split_partial": (
+        DECODE,
+        "    for (int t = 1; t < n_live; ++t) {",
+        "    for (int t = 1; t < n_live - 1; ++t) {"),
 }
 
 
 def child(root: str) -> None:
-    """Run both checks on the copy of ray_tpu_torch under ``root``."""
+    """Run the three checks on the copy of ray_tpu_torch under ``root``."""
     sys.path[:0] = [root, HERE]
     import torch
 
@@ -73,8 +89,15 @@ def child(root: str) -> None:
         *chip_smoke.flash_inputs(device, torch.bfloat16, 8, 32, 8, 2048, 64),
         causal=True)
     torch.cuda.empty_cache()
-    print(json.dumps({"kernels": errs,
-                      "grads": chip_smoke.flash_grad_check(device)}))
+    grads = chip_smoke.flash_grad_check(device)
+    torch.cuda.empty_cache()
+    try:
+        chip_smoke.kernel_checks(device)
+        decode = {"ok": True}
+    except AssertionError as e:
+        decode = {"ok": False, "error": str(e)[:300]}
+    print(json.dumps({"kernels": errs, "grads": grads,
+                      "decode": {"paged_and_slot": decode}}))
 
 
 def main() -> int:
@@ -88,17 +111,17 @@ def main() -> int:
                             ignore=shutil.ignore_patterns("_build",
                                                           "__pycache__"))
             if name in MUTANTS:
-                path = os.path.join(root, SOURCE)
+                source, old, new = MUTANTS[name]
+                path = os.path.join(root, source)
                 with open(path) as f:
                     text = f.read()
-                old, new = MUTANTS[name]
                 assert text.count(old) == 1, f"{name}: anchor not unique"
                 with open(path, "w") as f:
                     f.write(text.replace(old, new))
         builds = {name: subprocess.Popen(
             [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
              " from ray_tpu_torch.ops import _build;"
-             " _build.build(['flash_attention'])", root],
+             " _build.build(_build.sources())", root],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for name, root in roots.items()}
         for name, proc in builds.items():

@@ -76,6 +76,68 @@ def test_slot_kernel_matches_plain(cuda_device, dtype):
                                atol=_tol(dtype))
 
 
+# K3 is split-KV: a split is blocks_per_split(bs) pool blocks, and the
+# lengths below end on a split boundary, one past it, inside the first
+# split, at the table's capacity (every split) and past it (a stale slot).
+SPLIT_CASES = [  # B, H, KV, D, bs, MBS
+    (7, 8, 2, 128, 16, 24),            # group 4, three splits of 8 blocks
+    (7, 8, 8, 64, 64, 6),              # group 1, three splits of 2 blocks
+    (7, 16, 2, 128, 32, 12),           # group 8
+    (7, 16, 2, 64, 64, 5),             # group 8, a short last split
+    (1, 8, 1, 128, 64, 32),            # one slot, full: sixteen splits
+]
+
+
+def _split_inputs(device, dtype, B, H, KV, D, bs, MBS, seed=0):
+    split = tpaged.blocks_per_split(bs) * bs
+    cap = MBS * bs
+    lengths = ([split, split + 1, 0, 1, cap, cap + 1, 2 * split - 1][:B]
+               if B > 1 else [cap])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    nb = B * MBS + 1
+    perm = torch.randperm(nb - 1, generator=gen, device=device) + 1
+    tables = torch.zeros(B, MBS, dtype=torch.int32, device=device)
+    for b, n in enumerate(lengths):
+        nblk = min(-(-n // bs), MBS)
+        tables[b, :nblk] = perm[b * MBS:b * MBS + nblk]
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    return (rand(B, 1, H, D), rand(nb, bs, KV, D), rand(nb, bs, KV, D),
+            tables, torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_paged_split_kernel_matches_plain(cuda_device, dtype, case):
+    q, kp, vp, tables, lengths = _split_inputs(cuda_device, dtype, *case)
+    D = case[3]
+    got = tpaged.paged_decode_attention(q, kp, vp, tables, lengths,
+                                        scale=D ** -0.5)
+    torch.cuda.synchronize()
+    want = tpaged.paged_attention_reference(q, kp, vp, tables, lengths,
+                                            scale=D ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    for b, n in enumerate(lengths.tolist()):
+        if n == 0:
+            assert torch.count_nonzero(got[b]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_split_kernel_deterministic(cuda_device, dtype):
+    """The splits' partials are combined in split order, whichever split
+    finishes last: two runs agree bit for bit."""
+    args = _split_inputs(cuda_device, dtype, *SPLIT_CASES[0])
+    first = tpaged.paged_decode_attention(*args, scale=0.1)
+    second = tpaged.paged_decode_attention(*args, scale=0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_unsupported_dtype(cuda_device):
     q, kp, vp, tables, lengths = _inputs(cuda_device, torch.float16)
@@ -206,6 +268,40 @@ def test_flash_bwd_bf16_dk_dv_deterministic(cuda_device):
     for a, b, w in zip(first, second, want):
         _close(a, w)
         _close(b, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_fwd_bf16_matches_plain(cuda_device, D, causal, group):
+    """The bf16 forward (128 q rows a block, 128 kv rows a tile) at every
+    head dim, with q and kv lengths that are no multiple of either tile
+    (Sq != Skv without the causal mask)."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    Sq, Skv = (200, 200) if causal else (150, 263)
+    q, k, v, _ = _flash_inputs(cuda_device, torch.bfloat16, 1, 2 * group, 2,
+                               Sq, Skv, D)
+    kw = dict(causal=causal, scale=D ** -0.5)
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = tfa.flash_attention_fwd_reference(q, k, v, **kw)
+    _close(out, want_out)
+    _close(lse, want_lse)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_bf16_deterministic(cuda_device):
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, _ = _flash_inputs(cuda_device, torch.bfloat16, 2, 8, 2, 300,
+                               300, 64)
+    kw = dict(causal=True, scale=64 ** -0.5)
+    first = tfa.flash_attention_fwd(q, k, v, **kw)
+    second = tfa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda

@@ -12,6 +12,9 @@ version to the JAX oracle on identical bf16 inputs to one bf16 rounding
 of the output (2^-7 relative), since both work in f32 and round once.
 """
 
+import ctypes
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -165,6 +168,45 @@ def test_kernel_operand_checks(case, exc):
                                torch.zeros(2, 8, 2, 16),
                                torch.zeros(2, 8, 2, 16),
                                (torch.zeros(2, dtype=torch.int32),), 16) == 0
+
+
+def test_launch_argtypes_match_cuda_source():
+    """The ctypes signatures of both decode wrappers against the
+    ``extern "C"`` launch functions of ``csrc/decode_attention.cu``: a
+    pointer in an int's place would be cut to 32 bits, and only the card
+    could show it."""
+    from test_torch_flash_attention import _launch_params
+
+    with open(os.path.join(_build.CSRC, "decode_attention.cu")) as f:
+        params = _launch_params(f.read())
+    kind = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+            ctypes.c_float: "float"}
+    argtypes = {**tdec.ARGTYPES, **tpaged.ARGTYPES}
+    assert set(params) == set(argtypes)
+    for name, types in argtypes.items():
+        assert [kind[t] for t in types] == params[name], name
+    # K3 takes its workspace (partials, arrivals) after out
+    assert params["paged_decode_attention_launch"][:8] == ["ptr"] * 8
+
+
+def test_paged_split_workspace_is_kept_and_grown():
+    """K3's splits are whole pool blocks of about SPLIT_ROWS rows; its
+    workspace is allocated once per device and grown, never shrunk, and
+    new arrival tickets start at zero."""
+    assert [tpaged.blocks_per_split(bs) for bs in (16, 64, 128, 256)] == \
+        [8, 2, 1, 1]
+    dev = torch.device("cpu")
+    saved = tpaged._scratch.pop(dev, None)
+    try:
+        arrivals, partials = tpaged._workspace(dev, 4, 100)
+        again = tpaged._workspace(dev, 2, 50)
+        assert again[0] is arrivals and again[1] is partials
+        grown, same = tpaged._workspace(dev, 8, 100)
+        assert grown.numel() == 8 and not grown.any() and same is partials
+    finally:
+        tpaged._scratch.pop(dev, None)
+        if saved is not None:
+            tpaged._scratch[dev] = saved
 
 
 def test_build_reports_compiler_failure(tmp_path, monkeypatch):
