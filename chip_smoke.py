@@ -13,7 +13,9 @@ Phases (any failure exits non-zero, and no result line is printed):
   3. kernels: each decode-attention kernel against its plain PyTorch
      version at the serving shapes, in bf16 and f32, with edge lengths
      (1, a block, a non-multiple, full, stale full+1, 0) and shuffled
-     block tables, and bit for bit equal to itself in a second run;
+     block tables, the slot kernel also at its split boundaries (127, 128,
+     129 beside 1, 64, 2048, 2049, 0), and bit for bit equal to itself in
+     a second run;
      times of kernel, plain version and the library yardstick
      (F.scaled_dot_product_attention, timed here only; kernel and library
      from a CUDA graph of 20 calls, since the wrapper's host time exceeds
@@ -30,8 +32,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      Hkv=8, S=2048, D=64, causal), at D=128, and at a ragged S=1000 with
      group 1, non-causal, row by row under the tolerance
      ops/flash_attention.py states, each call launching exactly the
-     kernels of its dtype, K1 bit for bit equal to itself in a second
-     run; times of kernel (the bf16 backward with its
+     kernels of its dtype, K1 and the f32 backward bit for bit equal to
+     themselves in a second run; times of kernel (the bf16 backward with its
      workspace zeroing and cast), plain version and library yardstick
      (scaled_dot_product_attention and its autograd backward, timed here
      only), and the bound; then the training path's bf16 attention
@@ -136,12 +138,14 @@ def kernel_label(mangled):
 def kernel_checks(device, B=8, H=32, KV=8, D=128, bs=64, MBS=32, S=2048,
                   seed=0):
     """Both kernels against their plain versions; returns per-kernel
-    records keyed by dtype."""
+    records keyed by dtype, each with its error over the tolerance
+    (``excess``), whether two runs gave the same bits and what the length-0
+    slot got (:func:`assert_kernels` holds them to their bounds)."""
     import torch
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference)
+        SPLIT_ROWS, decode_attention, decode_attention_reference)
     from ray_tpu_torch.ops.paged_decode_attention import (
         paged_attention_reference, paged_decode_attention)
 
@@ -150,6 +154,9 @@ def kernel_checks(device, B=8, H=32, KV=8, D=128, bs=64, MBS=32, S=2048,
     cap = MBS * bs
     edge = [1, bs, bs + 37, cap, cap + 1, 0]
     lens = (edge + [cap // 2 + 11, 3 * bs - 1] * B)[:B]
+    # K4 also at its split boundaries (S = cap: 2049 is a stale slot)
+    split_lens = ([1, bs, SPLIT_ROWS - 1, SPLIT_ROWS, SPLIT_ROWS + 1, S,
+                   S + 1, 0] * B)[:B]
     NB = B * MBS + 1
     gen = torch.Generator(device=device).manual_seed(seed)
     perm = torch.randperm(NB - 1, generator=gen, device=device) + 1
@@ -158,37 +165,41 @@ def kernel_checks(device, B=8, H=32, KV=8, D=128, bs=64, MBS=32, S=2048,
         nblk = min(-(-n // bs), MBS)
         tables[b, :nblk] = perm[b * MBS:b * MBS + nblk]  # shuffled, sparse
     lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    split_lengths = torch.tensor(split_lens, dtype=torch.int32, device=device)
     scale = D ** -0.5
     paged_rows = sum(min(n, cap) for n in lens)
     slot_rows = sum(min(n, S) for n in lens)
-    out = {"paged": {}, "slot": {}, "lengths": lens}
+    out = {"paged": {}, "slot": {}, "lengths": lens,
+           "slot_split_lengths": split_lens}
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device=device)
+
+    def compare(kernel, plain, args, lens_):
+        """The kernel twice and its plain version on ``args``."""
+        got = kernel(*args, scale=scale)
+        again = kernel(*args, scale=scale)
+        torch.cuda.synchronize()
+        want = plain(*args, scale=scale)
+        return {"max_abs_err": (got.float() - want.float()).abs().max()
+                .item(),
+                "equal_runs": torch.equal(got, again),
+                "finite": bool(torch.isfinite(got).all()),
+                "zero_slot_max": got[lens_.index(0)].abs().max().item()}
 
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).split(".")[1]
         sets = [(rand(B, 1, H, D).to(dt), rand(NB, bs, KV, D).to(dt),
                  rand(NB, bs, KV, D).to(dt)) for _ in range(INPUT_COPIES)]
-        q, kp, vp = sets[0]
-        got = paged_decode_attention(q, kp, vp, tables, lengths, scale=scale)
-        again = paged_decode_attention(q, kp, vp, tables, lengths,
-                                       scale=scale)
-        torch.cuda.synchronize()
-        assert torch.equal(got, again), "paged kernel: two runs differ"
-        want = paged_attention_reference(q, kp, vp, tables, lengths,
-                                         scale=scale)
-        err = (got.float() - want.float()).abs().max().item()
-        assert torch.isfinite(got).all(), "paged kernel: non-finite output"
-        assert err <= TOL[name], f"paged kernel {name}: max_abs_err {err}"
-        assert got[lens.index(0)].abs().max().item() == 0.0
+        rec = compare(paged_decode_attention, paged_attention_reference,
+                      (*sets[0], tables, lengths), lens)
         gathered = [(q_.transpose(1, 2), k_[tables.long()].reshape(
             B, cap, KV, D).transpose(1, 2), v_[tables.long()].reshape(
             B, cap, KV, D).transpose(1, 2)) for q_, k_, v_ in sets]
         mask = (torch.arange(cap, device=device)[None, :]
                 < lengths[:, None])[:, None, None, :]
-        rec = {
-            "max_abs_err": err, "tolerance": TOL[name],
+        rec.update({
+            "tolerance": TOL[name],
             "ms": time_ms([lambda s=s: paged_decode_attention(
                 *s, tables, lengths, scale=scale) for s in sets], graph=True),
             "plain_ms": time_ms([lambda s=s: paged_attention_reference(
@@ -199,26 +210,29 @@ def kernel_checks(device, B=8, H=32, KV=8, D=128, bs=64, MBS=32, S=2048,
                 g[0], g[1], g[2], attn_mask=mask, scale=scale,
                 enable_gqa=True) for g in gathered], graph=True)
             if gqa else None,
-        }
+        })
         rec["bound_ms"], rec["bound_by"] = bound_ms(
-            paged_rows, B, H, KV, D, q.element_size(), name,
+            paged_rows, B, H, KV, D, sets[0][0].element_size(), name,
             index_bytes=4 * B + 4 * sum(min(-(-n // bs), MBS) for n in lens))
         out["paged"][name] = rec
         del gathered
 
         csets = [(q_, rand(B, S, KV, D).to(dt), rand(B, S, KV, D).to(dt))
                  for q_, _, _ in sets]
-        q, kc, vc = csets[0]
-        got = decode_attention(q, kc, vc, lengths, scale=scale)
-        torch.cuda.synchronize()
-        want = decode_attention_reference(q, kc, vc, lengths, scale=scale)
-        err = (got.float() - want.float()).abs().max().item()
-        assert torch.isfinite(got).all(), "slot kernel: non-finite output"
-        assert err <= TOL[name], f"slot kernel {name}: max_abs_err {err}"
+        rec = compare(decode_attention, decode_attention_reference,
+                      (*csets[0], lengths), lens)
+        split = compare(decode_attention, decode_attention_reference,
+                        (*csets[1], split_lengths), split_lens)
+        rec = {"max_abs_err": max(rec["max_abs_err"], split["max_abs_err"]),
+               "split_lengths_max_abs_err": split["max_abs_err"],
+               "equal_runs": rec["equal_runs"] and split["equal_runs"],
+               "finite": rec["finite"] and split["finite"],
+               "zero_slot_max": max(rec["zero_slot_max"],
+                                    split["zero_slot_max"])}
         smask = (torch.arange(S, device=device)[None, :]
                  < lengths[:, None])[:, None, None, :]
-        rec = {
-            "max_abs_err": err, "tolerance": TOL[name],
+        rec.update({
+            "tolerance": TOL[name],
             "ms": time_ms([lambda s=s: decode_attention(
                 *s, lengths, scale=scale) for s in csets], graph=True),
             "plain_ms": time_ms([lambda s=s: decode_attention_reference(
@@ -228,15 +242,32 @@ def kernel_checks(device, B=8, H=32, KV=8, D=128, bs=64, MBS=32, S=2048,
                 s[2].transpose(1, 2), attn_mask=smask, scale=scale,
                 enable_gqa=True) for s in csets], graph=True)
             if gqa else None,
-        }
+        })
         rec["bound_ms"], rec["bound_by"] = bound_ms(
-            slot_rows, B, H, KV, D, q.element_size(), name,
+            slot_rows, B, H, KV, D, csets[0][0].element_size(), name,
             index_bytes=4 * B)
         out["slot"][name] = rec
         del sets, csets
         for kind in ("paged", "slot"):
-            log(f"  {kind:5s} {name:8s} " + json.dumps(out[kind][name]))
+            r = out[kind][name]
+            r["excess"] = r["max_abs_err"] / r["tolerance"]
+            r["ok"] = (r["excess"] <= 1.0 and r["equal_runs"] and r["finite"]
+                       and r["zero_slot_max"] == 0.0)
+            log(f"  {kind:5s} {name:8s} " + json.dumps(r))
     return out
+
+
+def assert_kernels(records):
+    """Each decode kernel within its tolerance of its plain version, finite,
+    0 on the length-0 slot, and bit for bit equal to itself in a second
+    run."""
+    for kind in ("paged", "slot"):
+        for name, r in records[kind].items():
+            what = f"{kind} kernel {name}"
+            assert r["finite"], f"{what}: non-finite output"
+            assert r["excess"] <= 1.0, f"{what}: max_abs_err {r['max_abs_err']}"
+            assert r["zero_slot_max"] == 0.0, f"{what}: length 0 is not 0"
+            assert r["equal_runs"], f"{what}: two runs differ"
 
 
 # ------------------------------------------------------------- phases 4-5
@@ -433,7 +464,8 @@ BWD_KERNELS = {"bfloat16": ("bwd",), "float32": ("dq", "dkv")}
 def flash_compare(q, k, v, do, causal):
     """K1, and the backward kernels of q's dtype through
     flash_attention_bwd, against their plain versions on the same inputs
-    (both backward versions take the plain forward's lse and delta).
+    (both backward versions take the plain forward's lse and delta); K1
+    and the f32 backward must give the same bits in a second run.
     Returns each result's mismatch (ops.flash_attention.mismatch: row by
     row under the stated tolerance) and the backward's operands."""
     import torch
@@ -457,6 +489,13 @@ def flash_compare(q, k, v, do, causal):
     assert fa.flash_attention_bwd.launches == {
         key: n + (key in ran) for key, n in before.items()}, \
         (before, fa.flash_attention_bwd.launches)
+    if q.dtype == torch.float32:
+        # K2a and K2b own their tiles (bf16's dQ adds in L2 in no order)
+        again = fa.flash_attention_bwd(*bwd_args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            "f32 K2a/K2b: two runs differ"
+        del again
     want = fa.flash_attention_bwd_reference(*bwd_args, **kw)
     errs = {}
     for part, g, w in zip(("out", "lse", "dq", "dk", "dv"),
@@ -732,6 +771,7 @@ def main() -> int:
     log("[3] kernels vs plain versions (B=8 H=32 KV=8 D=128 bs=64 MBS=32, "
         "S=2048)")
     report["kernels"] = kernel_checks(device)
+    assert_kernels(report["kernels"])
 
     # 4. debug engine: card == CPU
     report["debug"] = {}

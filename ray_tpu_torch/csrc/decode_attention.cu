@@ -21,14 +21,18 @@
 // limit, so the least time is those bytes over the 3.35 TB/s of device
 // memory.
 //
-// paged_decode_attention_kernel (K3), split-KV (flash-decoding): the grid
-// is (kv head, slot, split), a split being a fixed run of pool blocks
-// (ops/paged_decode_attention.py::SPLIT_ROWS rows), so a long slot spreads
-// over many SMs (at the engine's 8b decode, 4 slots of 1024 rows: 256
-// blocks instead of 32). A split past the slot's length exits at once;
-// rows past the length, and table entries past the valid prefix, are never
-// read (a stale slot with len > MBS * bs reads MBS blocks). Inside a
-// split, each lane loads 16 bytes of a K row and of a V row straight into
+// Design (flash-decoding), one kernel body for both layouts: the template
+// decode_split<T, D, G, Rows> takes a row-address policy, PagedRows (a row
+// r of slot b is pool row tables[b, r / bs] * bs + r % bs) or SlotRows (row
+// b * S + r of the contiguous cache), and the two kernels above are its two
+// instantiations. The grid is (kv head, slot, split), a split being a fixed
+// run of rows (ops/decode_attention.py::SPLIT_ROWS; for the paged layout,
+// whole pool blocks), so a long slot spreads over many SMs (at the engine's
+// 8b decode, 4 slots of 1024 rows: 256 blocks instead of 32). A split past
+// the slot's length exits at once; rows past the length, and table entries
+// past the valid prefix, are never read (a stale slot reads min(len, MBS *
+// bs) rows paged and min(len, S) rows in a slot cache). Inside a split,
+// each lane loads 16 bytes of a K row and of a V row straight into
 // registers, several rows in flight, with no shared-memory staging: each
 // row is used once, by the kv head's whole query group, whose q vectors
 // live in registers. Scores are f32 FMAs and shuffles over the row's
@@ -42,19 +46,9 @@
 // What still holds it back: at these sizes a call moves 20-30 MB in
 // microseconds, so the launch, the longest split's latency chain and the
 // combine, not the bytes, set its time (PERF.md).
-//
-// decode_attention_kernel (K4), PR 1's simple design, until it takes the
-// split design too:
-//   * one thread block per (kv head, slot); the block handles the kv head's
-//     whole query group, so each K/V row is read from device memory once;
-//   * the block loops over the slot's 64-row tiles, staging the valid rows
-//     of its kv head into shared memory with 16-byte loads; rows past the
-//     slot's length are never read, so the loop bound is min(len, S) rows;
-//   * shared rows are padded by one 4-byte word so that threads reading the
-//     same column of consecutive rows hit distinct banks;
-//   * one warp per query row runs the online-softmax recurrence.
 // Inactive or released slots have all-zero table rows (the null block 0)
-// or zero lengths: they read finite rows, and the caller discards their
+// or zero lengths, and a slot cache's inactive rows are rewritten with
+// their own contents: they read finite rows, and the caller discards their
 // output.
 
 #include <cuda_bf16.h>
@@ -65,25 +59,8 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
-constexpr int kSlotTile = 64;              // rows per tile, contiguous cache
-constexpr int kMaxSmem = 232448;           // bytes a block may use on H100
-constexpr int kSplitWarps = 4;             // paged: warps of a split block
+constexpr int kSplitWarps = 4;             // warps of a split block
 constexpr int kMaxGridYZ = 65535;
-
-template <typename T>
-__device__ __forceinline__ float elem(const uint32_t* row, int d);
-
-template <>
-__device__ __forceinline__ float elem<float>(const uint32_t* row, int d) {
-  return __uint_as_float(row[d]);
-}
-
-template <>
-__device__ __forceinline__ float elem<bf16>(const uint32_t* row, int d) {
-  return __bfloat162float(reinterpret_cast<const bf16*>(row)[d]);
-}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) {
@@ -93,17 +70,6 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) {
   *p = __float2bfloat16(x);
 }
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(~0u, x, o);
-  return x;
-}
-
-// ------------------------------------------------------------ K3, split-KV
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -142,28 +108,42 @@ __device__ __forceinline__ void merge(float& m, float& l, float* acc,
   m = mn;
 }
 
+// Row addresses: the index of row r of one slot among the (rows, KV, D)
+// rows of the cache tensor.
+struct PagedRows {                 // K3: through the slot's block table
+  const int* table;
+  int bs;
+  __device__ __forceinline__ size_t operator()(int r) const {
+    const int blk = r / bs;
+    return static_cast<size_t>(__ldg(table + blk)) * bs + (r - blk * bs);
+  }
+};
+struct SlotRows {                  // K4: the slot's contiguous S rows
+  size_t first;
+  __device__ __forceinline__ size_t operator()(int r) const {
+    return first + r;
+  }
+};
+
 // One block per (kv head j, slot b, split sp); split sp owns the rows
-// [sp * bps * bs, (sp + 1) * bps * bs) of the slot, bps pool blocks. A lane
-// loads 16 bytes of a K row and of a V row straight into registers: LPR
-// lanes cover a row, a warp RPW rows at once, U rows per lane in flight.
-// Scores for the whole GQA group come from the group's q vectors, held in
-// registers (times scale log2 e), by FMAs and shuffles over the row's lanes;
-// each group of LPR lanes runs its own online softmax in base 2. The lanes'
-// states are merged by shuffles, the warps' in shared memory, both in a
-// fixed order. A slot with one live split writes out directly; otherwise
-// each split writes (max, sum, acc) per q head to `part` and the last split
-// to arrive (a ticket on `arrivals`, which it resets to 0) combines the
-// splits in split order, so the result does not depend on arrival order.
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(32 * kSplitWarps)
-paged_decode_attention_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              const int* __restrict__ tables,
-                              const int* __restrict__ lengths,
-                              T* __restrict__ out, float* __restrict__ part,
-                              int* __restrict__ arrivals, int KV, int bs,
-                              int MBS, int bps, float scale) {
+// [sp * split_rows, (sp + 1) * split_rows) of the slot, of which the first
+// min(len, cap) are valid (cap: the rows a slot can hold). A lane loads 16
+// bytes of a K row and of a V row straight into registers: LPR lanes cover
+// a row, a warp RPW rows at once, U rows per lane in flight. Scores for the
+// whole GQA group come from the group's q vectors, held in registers (times
+// scale log2 e), by FMAs and shuffles over the row's lanes; each group of
+// LPR lanes runs its own online softmax in base 2. The lanes' states are
+// merged by shuffles, the warps' in shared memory, both in a fixed order.
+// A slot with one live split writes out directly; otherwise each split
+// writes (max, sum, acc) per q head to `part` and the last split to arrive
+// (a ticket on `arrivals`, which it resets to 0) combines the splits in
+// split order, so the result does not depend on arrival order.
+template <typename T, int D, int G, typename Rows>
+__device__ __forceinline__ void decode_split(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ part,
+    int* __restrict__ arrivals, const Rows rows, int len, int cap,
+    int split_rows, int KV, float scale) {
   constexpr int EPL = 16 / sizeof(T);            // elements a lane loads
   constexpr int LPR = D / EPL;                   // lanes a row
   constexpr int RPW = 32 / LPR;                  // rows a warp loads at once
@@ -181,9 +161,7 @@ paged_decode_attention_kernel(const T* __restrict__ q,
   const int H = KV * G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = lane % LPR, slot = lane / LPR;
-  const int len = max(lengths[b], 0);
-  const int limit = min(len, MBS * bs);          // a stale slot: MBS blocks
-  const int split_rows = bps * bs;
+  const int limit = min(max(len, 0), cap);       // a stale slot: cap rows
   const int n_live = (limit + split_rows - 1) / split_rows;
   T* ob = out + (static_cast<size_t>(b) * H + j * G) * D;
   if (n_live == 0) {                             // length 0 gives 0
@@ -213,7 +191,6 @@ paged_decode_attention_kernel(const T* __restrict__ q,
     for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   }
 
-  const int* tb = tables + static_cast<size_t>(b) * MBS;
   const size_t row_stride = static_cast<size_t>(KV) * D;
   const size_t head_off = static_cast<size_t>(j) * D + c * EPL;
   for (int r0 = r_begin; r0 < r_end; r0 += STEP) {
@@ -223,10 +200,7 @@ paged_decode_attention_kernel(const T* __restrict__ q,
       const int r = r0 + (warp * U + u) * RPW + slot;
       kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       if (r < r_end) {                           // never past the length
-        const int blk = r / bs;
-        const size_t off =
-            (static_cast<size_t>(__ldg(tb + blk)) * bs + (r - blk * bs))
-                * row_stride + head_off;
+        const size_t off = rows(r) * row_stride + head_off;
         kr[u] = __ldg(reinterpret_cast<const uint4*>(k + off));
         vr[u] = __ldg(reinterpret_cast<const uint4*>(v + off));
       }
@@ -350,244 +324,144 @@ paged_decode_attention_kernel(const T* __restrict__ q,
   }
 }
 
-struct PagedArgs {
+// K3: k/v are pools (NB, bs, KV, D); a split is bps pool blocks.
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(32 * kSplitWarps)
+paged_decode_attention_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const int* __restrict__ tables,
+                              const int* __restrict__ lengths,
+                              T* __restrict__ out, float* __restrict__ part,
+                              int* __restrict__ arrivals, int KV, int bs,
+                              int MBS, int bps, float scale) {
+  const int b = blockIdx.y;
+  decode_split<T, D, G>(q, k, v, out, part, arrivals,
+                        PagedRows{tables + static_cast<size_t>(b) * MBS, bs},
+                        lengths[b], MBS * bs, bps * bs, KV, scale);
+}
+
+// K4: k/v are caches (B, S, KV, D); a split is split_rows rows.
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(32 * kSplitWarps)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const int* __restrict__ lengths, T* __restrict__ out,
+                        float* __restrict__ part, int* __restrict__ arrivals,
+                        int KV, int S, int split_rows, float scale) {
+  const int b = blockIdx.y;
+  decode_split<T, D, G>(q, k, v, out, part, arrivals,
+                        SlotRows{static_cast<size_t>(b) * S}, lengths[b], S,
+                        split_rows, KV, scale);
+}
+
+// The operands of either launch: tables is null for the slot layout.
+struct Args {
   const void *q, *k, *v, *tables, *lengths;
   void* out;
   float* part;
   int* arrivals;
-  int B, KV, bs, MBS, bps;
+  int B, KV;
+  int bs, MBS, bps;                // paged
+  int S, split_rows;               // slot
   float scale;
   cudaStream_t stream;
 };
 
+int n_splits(const Args& a) {
+  return a.tables != nullptr ? (a.MBS + a.bps - 1) / a.bps
+                             : (a.S + a.split_rows - 1) / a.split_rows;
+}
+
 template <typename T, int D, int G>
-cudaError_t paged_launch(const PagedArgs& a) {
-  const dim3 grid(a.KV, a.B, (a.MBS + a.bps - 1) / a.bps);
-  paged_decode_attention_kernel<T, D, G><<<grid, 32 * kSplitWarps, 0,
-                                           a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const int*>(a.tables),
-      static_cast<const int*>(a.lengths), static_cast<T*>(a.out), a.part,
-      a.arrivals, a.KV, a.bs, a.MBS, a.bps, a.scale);
+cudaError_t launch(const Args& a) {
+  const dim3 grid(a.KV, a.B, n_splits(a));
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const int* lengths = static_cast<const int*>(a.lengths);
+  T* out = static_cast<T*>(a.out);
+  if (a.tables != nullptr) {
+    paged_decode_attention_kernel<T, D, G><<<grid, 32 * kSplitWarps, 0,
+                                             a.stream>>>(
+        q, k, v, static_cast<const int*>(a.tables), lengths, out, a.part,
+        a.arrivals, a.KV, a.bs, a.MBS, a.bps, a.scale);
+  } else {
+    decode_attention_kernel<T, D, G><<<grid, 32 * kSplitWarps, 0,
+                                       a.stream>>>(
+        q, k, v, lengths, out, a.part, a.arrivals, a.KV, a.S, a.split_rows,
+        a.scale);
+  }
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t paged_group(const PagedArgs& a, int G) {
+cudaError_t by_group(const Args& a, int G) {
   switch (G) {
-    case 1: return paged_launch<T, D, 1>(a);
-    case 2: return paged_launch<T, D, 2>(a);
-    case 4: return paged_launch<T, D, 4>(a);
-    case 8: return paged_launch<T, D, 8>(a);
+    case 1: return launch<T, D, 1>(a);
+    case 2: return launch<T, D, 2>(a);
+    case 4: return launch<T, D, 4>(a);
+    case 8: return launch<T, D, 8>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t paged_dim(const PagedArgs& a, int D, int G) {
+cudaError_t by_dim(const Args& a, int D, int G) {
   switch (D) {
-    case 16: return paged_group<T, 16>(a, G);
-    case 32: return paged_group<T, 32>(a, G);
-    case 64: return paged_group<T, 64>(a, G);
-    case 128: return paged_group<T, 128>(a, G);
+    case 16: return by_group<T, 16>(a, G);
+    case 32: return by_group<T, 32>(a, G);
+    case 64: return by_group<T, 64>(a, G);
+    case 128: return by_group<T, 128>(a, G);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// ------------------------------------------------------------ K4, slot
-
-// 4-byte words of one staged K or V row (one word of padding).
-template <typename T>
-__host__ __device__ __forceinline__ int row_words(int D) {
-  return D * static_cast<int>(sizeof(T)) / 4 + 1;
-}
-
-template <typename T>
-size_t smem_bytes(int tile, int group, int D) {
-  return 4 * (2 * static_cast<size_t>(tile) * row_words<T>(D)
-              + 2 * static_cast<size_t>(group) * D      // q, acc
-              + static_cast<size_t>(group) * tile       // scores
-              + 3 * static_cast<size_t>(group));        // m, l, alpha
-}
-
-// k/v are caches (B, S, KV, D).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ lengths,
-              T* __restrict__ out, int H, int KV, int D, int tile, int S,
-              float scale) {
-  const int j = blockIdx.x;                  // kv head
-  const int b = blockIdx.y;                  // slot
-  const int group = H / KV;
-  const int rw = row_words<T>(D);
-  const int chunks = D * static_cast<int>(sizeof(T)) / 16;   // per row
-
-  extern __shared__ uint32_t smem[];
-  uint32_t* sK = smem;
-  uint32_t* sV = sK + tile * rw;
-  float* sQ = reinterpret_cast<float*>(sV + tile * rw);
-  float* sAcc = sQ + group * D;
-  float* sS = sAcc + group * D;
-  float* sM = sS + group * tile;
-  float* sL = sM + group;
-  float* sAlpha = sL + group;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  const int len = max(lengths[b], 0);
-  // rows this slot attends over, and the number of tiles holding them
-  const int limit = min(len, S);
-  const int ntiles = (limit + tile - 1) / tile;
-
-  const T* qb = q + (static_cast<size_t>(b) * H + j * group) * D;
-  for (int i = tid; i < group * D; i += blockDim.x) {
-    sQ[i] = to_float(qb[i]);
-    sAcc[i] = 0.f;
-  }
-  for (int g = tid; g < group; g += blockDim.x) {
-    sM[g] = kNegInf;
-    sL[g] = 0.f;
-  }
-  __syncthreads();
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int rows = min(tile, limit - it * tile);
-    // element offset of row 0
-    const size_t base = ((static_cast<size_t>(b) * S + it * tile) * KV + j) * D;
-    const size_t row_stride = static_cast<size_t>(KV) * D;
-    for (int i = tid; i < rows * chunks; i += blockDim.x) {
-      const int r = i / chunks, c = i % chunks;
-      const uint4 kc = reinterpret_cast<const uint4*>(
-          k + base + r * row_stride)[c];
-      const uint4 vc = reinterpret_cast<const uint4*>(
-          v + base + r * row_stride)[c];
-      uint32_t* dk = sK + r * rw + c * 4;
-      uint32_t* dv = sV + r * rw + c * 4;
-      dk[0] = kc.x; dk[1] = kc.y; dk[2] = kc.z; dk[3] = kc.w;
-      dv[0] = vc.x; dv[1] = vc.y; dv[2] = vc.z; dv[3] = vc.w;
-    }
-    __syncthreads();
-
-    // scores: one thread per (query row g, key row r)
-    for (int i = tid; i < group * rows; i += blockDim.x) {
-      const int g = i / rows, r = i % rows;
-      const float* qg = sQ + g * D;
-      const uint32_t* kr = sK + r * rw;
-      float acc = 0.f;
-      for (int d = 0; d < D; ++d) acc += qg[d] * elem<T>(kr, d);
-      sS[g * tile + r] = acc * scale;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query row
-    for (int g = warp; g < group; g += nwarps) {
-      float* s = sS + g * tile;
-      float mx = kNegInf;
-      for (int r = lane; r < rows; r += 32) mx = fmaxf(mx, s[r]);
-      mx = warp_max(mx);
-      const float m_prev = sM[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int r = lane; r < rows; r += 32) {
-        const float p = expf(s[r] - m_new);
-        s[r] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sAlpha[g] = alpha;
-        sL[g] = sL[g] * alpha + sum;
-        sM[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P @ V: one thread per (query row g, column d)
-    for (int i = tid; i < group * D; i += blockDim.x) {
-      const int g = i / D, d = i % D;
-      const float* p = sS + g * tile;
-      float a = sAcc[i] * sAlpha[g];
-      for (int r = 0; r < rows; ++r) a += p[r] * elem<T>(sV + r * rw, d);
-      sAcc[i] = a;
-    }
-    __syncthreads();
-  }
-
-  T* ob = out + (static_cast<size_t>(b) * H + j * group) * D;
-  for (int i = tid; i < group * D; i += blockDim.x) {
-    const float l = sL[i / D];
-    store(ob + i, sAcc[i] / (l == 0.f ? 1.f : l));
-  }
-}
-
-template <typename T>
-cudaError_t slot_launch(const void* q, const void* k, const void* v,
-                        const void* lengths, void* out, int B, int H, int KV,
-                        int D, int S, float scale, cudaStream_t stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || S <= 0
-      || (D * static_cast<int>(sizeof(T))) % 16 != 0) {
+// dtype: 0 = float32, 1 = bfloat16.
+cudaError_t dispatch(const Args& a, int H, int D, int dtype) {
+  if (a.B <= 0 || a.B > kMaxGridYZ || a.KV <= 0 || H % a.KV != 0
+      || n_splits(a) > kMaxGridYZ) {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes<T>(kSlotTile, H / KV, D);
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  decode_kernel<T><<<dim3(KV, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<T*>(out), H, KV, D, kSlotTile, S, scale);
-  return cudaGetLastError();
+  if (dtype == 0) return by_dim<float>(a, D, H / a.KV);
+  if (dtype == 1) return by_dim<bf16>(a, D, H / a.KV);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
-// One call runs one kernel. partials: (B, KV, ceil(MBS / blocks_per_split),
-// H / KV, D + 2) float32 scratch; arrivals: B * KV int32 that must hold
-// zeros, and hold zeros again when the kernel ends (calls that share them
-// must be ordered, as on one stream).
+// Each launch returns a cudaError_t (0 on success) and runs one kernel.
+// Both take a workspace after out: partials, (B, KV, splits, H / KV, D + 2)
+// float32 scratch, and arrivals, B * KV int32 that must hold zeros, and
+// hold zeros again when the kernel ends (calls that share them must be
+// ordered, as on one stream). Paged: splits = ceil(MBS / blocks_per_split).
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* lengths, void* out, void* partials,
     void* arrivals, int B, int H, int KV, int D, int block_size,
     int max_blocks_per_seq, int blocks_per_split, float scale, int dtype,
     void* stream) {
-  if (B <= 0 || B > kMaxGridYZ || KV <= 0 || H % KV != 0 || block_size <= 0
-      || max_blocks_per_seq <= 0 || blocks_per_split <= 0
-      || (max_blocks_per_seq + blocks_per_split - 1) / blocks_per_split
-             > kMaxGridYZ) {
+  if (tables == nullptr || block_size <= 0 || max_blocks_per_seq <= 0
+      || blocks_per_split <= 0) {
     return cudaErrorInvalidValue;
   }
-  const PagedArgs a{q, k_pool, v_pool, tables, lengths, out,
-                    static_cast<float*>(partials), static_cast<int*>(arrivals),
-                    B, KV, block_size, max_blocks_per_seq, blocks_per_split,
-                    scale, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return paged_dim<float>(a, D, H / KV);
-  if (dtype == 1) return paged_dim<bf16>(a, D, H / KV);
-  return cudaErrorInvalidValue;
+  const Args a{q, k_pool, v_pool, tables, lengths, out,
+               static_cast<float*>(partials), static_cast<int*>(arrivals),
+               B, KV, block_size, max_blocks_per_seq, blocks_per_split, 0, 0,
+               scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(a, H, D, dtype);
 }
 
+// Slot: k/v caches (B, S, KV, D); splits = ceil(S / rows_per_split).
 extern "C" int decode_attention_launch(
     const void* q, const void* k_cache, const void* v_cache,
-    const void* lengths, void* out, int B, int H, int KV, int D, int S,
-    float scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return slot_launch<float>(q, k_cache, v_cache, lengths, out, B, H, KV,
-                              D, S, scale, s);
-  }
-  if (dtype == 1) {
-    return slot_launch<bf16>(q, k_cache, v_cache, lengths, out, B, H, KV, D,
-                             S, scale, s);
-  }
-  return cudaErrorInvalidValue;
+    const void* lengths, void* out, void* partials, void* arrivals, int B,
+    int H, int KV, int D, int S, int rows_per_split, float scale, int dtype,
+    void* stream) {
+  if (S <= 0 || rows_per_split <= 0) return cudaErrorInvalidValue;
+  const Args a{q, k_cache, v_cache, nullptr, lengths, out,
+               static_cast<float*>(partials), static_cast<int*>(arrivals),
+               B, KV, 0, 0, 0, S, rows_per_split, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(a, H, D, dtype);
 }

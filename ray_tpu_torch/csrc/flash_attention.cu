@@ -76,10 +76,16 @@
 // nothing; blocks of one kv head side by side, or a causal tile paired
 // with its mirror per block, did not make it faster.
 //
-// The float32 instantiations (the forward, and the backward as
-// flash_bwd_dq_kernel and flash_bwd_dkv_kernel), chosen by dtype, run the
-// same loops on CUDA cores with f32 FMA (no TF32; wgmma has no f32
-// operands): 32-row tiles, 4 threads per row.
+// Float32 runs on the CUDA cores with f32 FMA (no TF32; wgmma has no f32
+// operands), bound by operations at 67 TFLOP/s. The forward's f32
+// instantiation (fwd_simt, chosen by dtype) runs the bf16 loops with
+// 32-row tiles, 4 threads a row, every score a D-long dot product over two
+// shared-memory rows. The f32 backward is two register-tiled kernels,
+// flash_bwd_dq_kernel and flash_bwd_dkv_kernel (design above them): 64 x 64
+// score tiles, 256 threads each holding a 4 x 4 micro-tile of S and dP,
+// operands read from shared memory as float4 so that one load feeds 16
+// FMAs, cp.async double buffering, dK and dV summed over the GQA group in
+// registers (both kernels give the same bits every run).
 //
 // Precision of bfloat16: P is rounded to bf16 before P V, as the TPU kernel
 // does. The TPU backward takes dS K, dS^T Q and P^T dO in f32; here P and dS
@@ -105,16 +111,11 @@ constexpr int kMaxSmem = 232448;           // bytes a block may use on H100
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 template <int D>
-struct SimtCfg {
-  static constexpr int BQ = 32, BKV = 32, BQ_DKV = 32;
+struct SimtCfg {                                 // the f32 forward, fwd_simt
+  static constexpr int BQ = 32, BKV = 32;
   static constexpr int LD = D + 1;
   static constexpr size_t fwd_smem =
       (BQ * LD + BKV * LD + BKV * D + BQ * (BKV + 1)) * sizeof(float);
-  static constexpr size_t dq_smem =
-      (2 * BQ * LD + 2 * BKV * LD + BQ * (BKV + 1)) * sizeof(float);
-  static constexpr size_t dkv_smem =
-      (2 * BKV * LD + 2 * BQ_DKV * LD + 2 * BKV * (BQ_DKV + 1)
-       + 2 * BQ_DKV) * sizeof(float);
 };
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -1036,162 +1037,386 @@ __device__ __forceinline__ void fwd_simt(const float* __restrict__ q,
   }
 }
 
+// The float32 backward, register-tiled on the CUDA cores (FP32 FMA; no
+// TF32: wgmma has no f32 operands). Both kernels work on 64 x 64 tiles of
+// scores with 256 threads in a 16 x 16 grid: thread (ty, tx) owns rows
+// ty + 16 i and columns tx + 16 j (i, j < 4) of a tile, a 4 x 4 micro-tile
+// of S and of dP in registers. Operands sit in shared memory row-major,
+// rows padded to D + 4 floats: a float4 load (4 values along D) of each of
+// the micro-tile's 4 rows and 4 columns feeds 4 x 4 x 4 = 64 FMAs, where
+// the SIMT split did two 4-byte loads per FMA. Lanes of a warp sit 4 rows
+// by 8 columns, so that each load instruction of a warp reads its 8 or 4
+// distinct rows from distinct banks (the padding staggers rows by 4 banks)
+// and 8 lanes (rows) or 4 (columns) read each address at once: a warp takes
+// one shared wavefront per 8 FMA instructions, where the SM issues 4 FMA
+// instructions a clock against one wavefront. At 1b_bench both kernels run
+// at 45-48% of the FP32 peak, and removing exp2, masks or loads saves
+// little: the FMA loops themselves set the time
+// (scripts/flash_bwd_f32_ablation.py, PERF.md). The second products read P or dS from
+// shared memory (rows of 72 floats) the same way, 4 rows x 4 kv (or q)
+// values a float4, against rows of K, Q or dO read as vectors of the
+// thread's own D columns. Tiles come by cp.async into two stages: the next
+// tile lands while this one computes. exp2 with scale*log2(e) folded into
+// one FMA; masks only on tiles that cross the diagonal or a ragged tail;
+// the heaviest causal tiles start first.
 template <int D>
-__device__ __forceinline__ void dq_simt(const float* __restrict__ q,
-                                        const float* __restrict__ k,
-                                        const float* __restrict__ v,
-                                        const float* __restrict__ dout,
-                                        const float* __restrict__ lse,
-                                        const float* __restrict__ delta,
-                                        float* __restrict__ dq, int Hq,
-                                        int Hkv, int Sq, int Skv, float scale,
-                                        int causal, unsigned char* smem) {
-  using C = SimtCfg<D>;
-  constexpr int BQ = C::BQ, BKV = C::BKV, LD = C::LD, NC = BKV / 4;
-  constexpr int ND = D / 4, LP = BKV + 1;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
-  const int q0 = qt * BQ;
-  const int row = threadIdx.x >> 2, tq = threadIdx.x & 3;
-  const int r = q0 + row;
+struct F32Bwd {
+  static constexpr int NT = 256, T = 64;         // threads, rows of a tile
+  static constexpr int LD = D + 4;               // floats a staged row
+  static constexpr int LDP = T + 8;              // floats a row of P or dS
+  // a thread's D columns of dQ, dK, dV: NV vectors of VW floats, vector m
+  // at columns 16 VW m + VW tx
+  static constexpr int VW = D >= 64 ? 4 : D / 16, NV = D / (16 * VW);
+  static constexpr int TILE = T * LD;            // floats of a staged tile
+  // dq: Q, dO and two stages of K, V; dS takes the spent V stage where
+  // that keeps two blocks on an SM (D = 64), else a tile of its own
+  static constexpr bool DQ_ALIAS = D >= 64;
+  static constexpr int LDS_DQ = DQ_ALIAS ? LD : LDP;
+  static constexpr size_t dq_smem =
+      (6 * TILE + (DQ_ALIAS ? 0 : T * LDP)) * sizeof(float);
+  static constexpr int DQ_BLOCKS = D < 128 ? 2 : 1;
+  // dkv: K, V and two stages of Q, dO, lse, delta; P and dS in a tile each
+  // where both fit (D < 128), else in one tile, in turn
+  static constexpr size_t dkv_base = (6 * TILE + 4 * T) * sizeof(float);
+  static constexpr bool DKV_PS2 =
+      dkv_base + 2 * T * LDP * sizeof(float) <= static_cast<size_t>(kMaxSmem);
+  static constexpr size_t dkv_smem =
+      dkv_base + (DKV_PS2 ? 2 : 1) * T * LDP * sizeof(float);
+  static constexpr int DKV_BLOCKS = D <= 32 ? 2 : 1;
+};
 
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sdO = sQ + BQ * LD;
-  float* sK = sdO + BQ * LD;
-  float* sV = sK + BKV * LD;
-  float* sS = sV + BKV * LD;
-  const size_t qoff = (static_cast<size_t>(bh) * Sq + q0) * D;
-  stage_f32<LD>(sQ, q + qoff, Sq - q0, BQ, D);
-  stage_f32<LD>(sdO, dout + qoff, Sq - q0, BQ, D);
-  const float* kb = k + static_cast<size_t>(kvh) * Skv * D;
-  const float* vb = v + static_cast<size_t>(kvh) * Skv * D;
-  const float lse_r = r < Sq ? lse[static_cast<size_t>(bh) * Sq + r] : 0.f;
-  const float delta_r = r < Sq ? delta[static_cast<size_t>(bh) * Sq + r] : 0.f;
-
-  float acc[ND];
+// Rows [0, 64) of a row-major (rows, D) f32 tile into shared rows of LD
+// floats by cp.async, 16 bytes a copy; rows from `avail` on zero-filled.
+template <int D, int LD, int NT>
+__device__ __forceinline__ void stage_tile_f32(float* dst, const float* src,
+                                               int avail, int tid) {
+  constexpr int C = D / 4;
 #pragma unroll
-  for (int e = 0; e < ND; ++e) acc[e] = 0.f;
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();
-    stage_f32<LD>(sK, kb + static_cast<size_t>(k0) * D, Skv - k0, BKV, D);
-    stage_f32<LD>(sV, vb + static_cast<size_t>(k0) * D, Skv - k0, BKV, D);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int c = tq + 4 * j, col = k0 + c;
-      const bool ok = r < Sq && col < Skv && (!causal || r >= col);
-      float ds = 0.f;
-      if (ok) {
-        const float p = expf(dot_f32(sQ + row * LD, sK + c * LD, D) * scale
-                             - lse_r);
-        ds = p * (dot_f32(sdO + row * LD, sV + c * LD, D) - delta_r);
-      }
-      sS[row * LP + c] = ds;
-    }
-    __syncwarp();
-#pragma unroll
-    for (int e = 0; e < ND; ++e) {
-      const int d = tq + 4 * e;
-      float a = acc[e];
-      for (int c = 0; c < BKV; ++c) a = fmaf(sS[row * LP + c], sK[c * LD + d], a);
-      acc[e] = a;
-    }
-  }
-  if (r < Sq) {
-    float* ob = dq + (static_cast<size_t>(bh) * Sq + r) * D;
-#pragma unroll
-    for (int e = 0; e < ND; ++e) ob[tq + 4 * e] = acc[e] * scale;
+  for (int i = tid; i < 64 * C; i += NT) {
+    const int r = i / C, c = i % C;
+    const bool ok = r < avail;
+    cp_async16(dst + r * LD + c * 4,
+               ok ? src + static_cast<size_t>(r) * D + c * 4 : src, ok);
   }
 }
 
-template <int D>
-__device__ __forceinline__ void dkv_simt(const float* __restrict__ q,
-                                         const float* __restrict__ k,
-                                         const float* __restrict__ v,
-                                         const float* __restrict__ dout,
-                                         const float* __restrict__ lse,
-                                         const float* __restrict__ delta,
-                                         float* __restrict__ dk,
-                                         float* __restrict__ dv, int Hq,
-                                         int Hkv, int Sq, int Skv,
-                                         float scale, int causal,
-                                         unsigned char* smem) {
-  using C = SimtCfg<D>;
-  constexpr int BQ = C::BQ_DKV, BKV = C::BKV, LD = C::LD, NC = BQ / 4;
-  constexpr int ND = D / 4, LP = BQ + 1;
-  const int bkv = blockIdx.y;
-  const int k0 = blockIdx.x * BKV;
-  const int group = Hq / Hkv;
-  const int row = threadIdx.x >> 2, tq = threadIdx.x & 3;
-  const int kr = k0 + row;
+__device__ __forceinline__ float lane_of(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
 
-  float* sK = reinterpret_cast<float*>(smem);
-  float* sV = sK + BKV * LD;
-  float* sQ = sV + BKV * LD;
-  float* sdO = sQ + BQ * LD;
-  float* sP = sdO + BQ * LD;
-  float* sS = sP + BKV * LP;
-  float* sL = sS + BKV * LP;
-  float* sDl = sL + BQ;
-  const size_t koff = (static_cast<size_t>(bkv) * Skv + k0) * D;
-  stage_f32<LD>(sK, k + koff, Skv - k0, BKV, D);
-  stage_f32<LD>(sV, v + koff, Skv - k0, BKV, D);
-
-  float gk[ND], gv[ND];
+// s[i][j] += sum_d A[ty + 16 i][d] B[tx + 16 j][d] (both row-major, LD).
+template <int D, int LD>
+__device__ __forceinline__ void mm_nt_f32(const float* A, const float* B,
+                                          int ty, int tx, float (&s)[4][4]) {
 #pragma unroll
-  for (int e = 0; e < ND; ++e) gk[e] = gv[e] = 0.f;
-  const int q_first = causal ? k0 / BQ : 0;
-  const int nqt = (Sq + BQ - 1) / BQ;
-  for (int gi = 0; gi < group; ++gi) {
-    const size_t bhq = static_cast<size_t>(bkv / Hkv) * Hq
-                       + (bkv % Hkv) * group + gi;
-    for (int qt = q_first; qt < nqt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();
-      const size_t qoff = (bhq * Sq + q0) * D;
-      stage_f32<LD>(sQ, q + qoff, Sq - q0, BQ, D);
-      stage_f32<LD>(sdO, dout + qoff, Sq - q0, BQ, D);
-      for (int i = threadIdx.x; i < BQ; i += kThreads) {
-        const bool in = q0 + i < Sq;
-        sL[i] = in ? lse[bhq * Sq + q0 + i] : 0.f;
-        sDl[i] = in ? delta[bhq * Sq + q0 + i] : 0.f;
-      }
-      __syncthreads();
+  for (int d = 0; d < D; d += 4) {
+    float4 a[4], b[4];
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int c = tq + 4 * j, qr = q0 + c;
-        const bool ok = qr < Sq && kr < Skv && (!causal || qr >= kr);
-        float p = 0.f, ds = 0.f;
-        if (ok) {
-          p = expf(dot_f32(sK + row * LD, sQ + c * LD, D) * scale - sL[c]);
-          ds = p * (dot_f32(sV + row * LD, sdO + c * LD, D) - sDl[c]);
+    for (int i = 0; i < 4; ++i) {
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + d);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * LD + d);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(lane_of(a[i], k), lane_of(b[j], k), s[i][j]);
         }
-        sP[row * LP + c] = p;
-        sS[row * LP + c] = ds;
-      }
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < ND; ++e) {
-        const int d = tq + 4 * e;
-        float av = gv[e], ak = gk[e];
-        for (int c = 0; c < BQ; ++c) {
-          av = fmaf(sP[row * LP + c], sdO[c * LD + d], av);
-          ak = fmaf(sS[row * LP + c], sQ[c * LD + d], ak);
-        }
-        gv[e] = av;
-        gk[e] = ak;
       }
     }
   }
-  if (kr < Skv) {
-    const size_t o = (static_cast<size_t>(bkv) * Skv + kr) * D;
+}
+
+// acc[i][n] += sum_c P[ty + 16 i][c] B[c][col n] over the tile's 64 rows c
+// of B (row-major, LD), P row-major (LDP); col n = 16 VW m + VW tx + e for
+// n = m VW + e, the thread's D columns.
+template <int D, int LDP, int LD>
+__device__ __forceinline__ void mm_nn_f32(const float* P, const float* B,
+                                          int ty, int tx,
+                                          float (&acc)[4][D / 16]) {
+  constexpr int VW = F32Bwd<D>::VW, NV = F32Bwd<D>::NV;
+#pragma unroll 2
+  for (int c = 0; c < 64; c += 4) {
+    float4 p[4];
 #pragma unroll
-    for (int e = 0; e < ND; ++e) {
-      dk[o + tq + 4 * e] = gk[e] * scale;
-      dv[o + tq + 4 * e] = gv[e];
+    for (int i = 0; i < 4; ++i) {
+      p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * LDP + c);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float* row = B + (c + k) * LD + VW * tx;
+      float b[D / 16];
+#pragma unroll
+      for (int m = 0; m < NV; ++m) {
+        if constexpr (VW == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(row + 64 * m);
+          b[4 * m] = x.x, b[4 * m + 1] = x.y, b[4 * m + 2] = x.z,
+          b[4 * m + 3] = x.w;
+        } else if constexpr (VW == 2) {
+          const float2 x = *reinterpret_cast<const float2*>(row + 32 * m);
+          b[2 * m] = x.x, b[2 * m + 1] = x.y;
+        } else {
+          b[m] = row[16 * m];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pv = lane_of(p[i], k);
+#pragma unroll
+        for (int n = 0; n < D / 16; ++n) acc[i][n] = fmaf(pv, b[n], acc[i][n]);
+      }
+    }
+  }
+}
+
+// Stores a thread's D / 16 columns of row `dst` (times `mul`).
+template <int D>
+__device__ __forceinline__ void store_cols_f32(float* dst, int tx,
+                                               const float* a, float mul) {
+  constexpr int VW = F32Bwd<D>::VW, NV = F32Bwd<D>::NV;
+#pragma unroll
+  for (int m = 0; m < NV; ++m) {
+    float* p = dst + 16 * VW * m + VW * tx;
+    if constexpr (VW == 4) {
+      *reinterpret_cast<float4*>(p) =
+          make_float4(a[4 * m] * mul, a[4 * m + 1] * mul, a[4 * m + 2] * mul,
+                      a[4 * m + 3] * mul);
+    } else if constexpr (VW == 2) {
+      *reinterpret_cast<float2*>(p) =
+          make_float2(a[2 * m] * mul, a[2 * m + 1] * mul);
+    } else {
+      *p = a[m] * mul;
+    }
+  }
+}
+
+// dQ for one 64-row q tile of one head (K2a): walks the kv tiles up to the
+// diagonal, forming S = Q K^T and dP = dO V^T in registers, dS = P (dP -
+// delta) into shared memory, and dQ += dS K in registers; writes scale dQ.
+// One block owns its dQ tile: no atomics, the same bits every run.
+template <int D>
+__global__ void __launch_bounds__(F32Bwd<D>::NT, F32Bwd<D>::DQ_BLOCKS)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int Hq, int Hkv, int Sq, int Skv, float scale,
+                    int causal) {
+  using C = F32Bwd<D>;
+  constexpr int T = C::T, LD = C::LD, NT = C::NT, TILE = C::TILE;
+  constexpr int LDS = C::LDS_DQ;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sdO = sQ + TILE;
+  float* sKV = sdO + TILE;                       // stage s: K, then V
+  float* sdS_own = sKV + 4 * TILE;               // unless DQ_ALIAS
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tx = (warp & 1) * 8 + (lane & 7), ty = (warp >> 1) * 4 + (lane >> 3);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T;   // heaviest first
+  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+  const float* kb = k + static_cast<size_t>(kvh) * Skv * D;
+  const float* vb = v + static_cast<size_t>(kvh) * Skv * D;
+  const int kv_end = causal ? min(Skv, q0 + T) : Skv;
+  const int n_kv = (kv_end + T - 1) / T;
+
+  const size_t qoff = (static_cast<size_t>(bh) * Sq + q0) * D;
+  stage_tile_f32<D, LD, NT>(sQ, q + qoff, Sq - q0, tid);
+  stage_tile_f32<D, LD, NT>(sdO, dout + qoff, Sq - q0, tid);
+  stage_tile_f32<D, LD, NT>(sKV, kb, Skv, tid);
+  stage_tile_f32<D, LD, NT>(sKV + TILE, vb, Skv, tid);
+  cp_async_commit();
+
+  float lse2[4], dl[4];                          // this thread's rows
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    const size_t o = static_cast<size_t>(bh) * Sq + r;
+    lse2[i] = r < Sq ? lse[o] * kLog2e : 0.f;
+    dl[i] = r < Sq ? delta[o] : 0.f;
+  }
+  const float sl2 = scale * kLog2e;
+  float acc[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) acc[i][n] = 0.f;
+  }
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * T;
+    float* cK = sKV + (t & 1) * 2 * TILE;
+    float* cV = cK + TILE;
+    cp_async_wait_all();
+    __syncthreads();                             // tile t in; t - 1 done
+    if (t + 1 < n_kv) {
+      float* nK = sKV + ((t + 1) & 1) * 2 * TILE;
+      const size_t o = static_cast<size_t>(k0 + T) * D;
+      stage_tile_f32<D, LD, NT>(nK, kb + o, Skv - k0 - T, tid);
+      stage_tile_f32<D, LD, NT>(nK + TILE, vb + o, Skv - k0 - T, tid);
+      cp_async_commit();
+    }
+    float s[4][4] = {}, dp[4][4] = {};
+    mm_nt_f32<D, LD>(sQ, cK, ty, tx, s);
+    mm_nt_f32<D, LD>(sdO, cV, ty, tx, dp);
+    float* sdS = C::DQ_ALIAS ? cV : sdS_own;
+    if constexpr (C::DQ_ALIAS) __syncthreads();  // every thread done with V
+    const bool edge = (causal && k0 + T - 1 > q0) || k0 + T > Skv
+                      || q0 + T > Sq;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p = fast_exp2(fmaf(s[i][j], sl2, -lse2[i]));
+        if (edge) {
+          const int r = q0 + ty + 16 * i, c = k0 + tx + 16 * j;
+          if (r >= Sq || c >= Skv || (causal && r < c)) p = 0.f;
+        }
+        sdS[(ty + 16 * i) * LDS + tx + 16 * j] = p * (dp[i][j] - dl[i]);
+      }
+    }
+    __syncthreads();
+    mm_nn_f32<D, LDS, LD>(sdS, cK, ty, tx, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r < Sq) {
+      store_cols_f32<D>(dq + (static_cast<size_t>(bh) * Sq + r) * D, tx,
+                        acc[i], scale);
+    }
+  }
+}
+
+// dK and dV for one 64-row kv tile of one kv head (K2b): walks (GQA member,
+// q tile) pairs in a fixed order, forming S^T = K Q^T and dP^T = V dO^T in
+// registers, P^T and dS^T into shared memory, and dV += P^T dO, dK += dS^T Q
+// in registers over the whole group; writes dK (times scale) and dV. No
+// atomics: the same bits every run.
+template <int D>
+__global__ void __launch_bounds__(F32Bwd<D>::NT, F32Bwd<D>::DKV_BLOCKS)
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
+                     float scale, int causal) {
+  using C = F32Bwd<D>;
+  constexpr int T = C::T, LD = C::LD, LDP = C::LDP, NT = C::NT;
+  constexpr int TILE = C::TILE;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + TILE;
+  float* sQdO = sV + TILE;                       // stage s: Q, then dO
+  float* sLD = sQdO + 4 * TILE;                  // stage s: lse, then delta
+  float* sP = sLD + 4 * T;
+  float* sdS = C::DKV_PS2 ? sP + T * LDP : sP;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tx = (warp & 1) * 8 + (lane & 7), ty = (warp >> 1) * 4 + (lane >> 3);
+  const int bkv = blockIdx.x, k0 = blockIdx.y * T;   // kv tile 0 heaviest
+  const int group = Hq / Hkv;
+  const size_t bhq0 = static_cast<size_t>(bkv / Hkv) * Hq + (bkv % Hkv) * group;
+  // causal: q tiles above the kv tile's first row see none of its rows
+  const int q_first = causal ? k0 / T : 0;
+  const int nqe = (Sq + T - 1) / T - q_first;
+  const int n_iter = group * max(nqe, 0);
+
+  const size_t koff = (static_cast<size_t>(bkv) * Skv + k0) * D;
+  stage_tile_f32<D, LD, NT>(sK, k + koff, Skv - k0, tid);
+  stage_tile_f32<D, LD, NT>(sV, v + koff, Skv - k0, tid);
+  // Q, dO, lse and delta of pair `it` into stage `st`
+  auto stage_pair = [&](int it, int st) {
+    const size_t bhq = bhq0 + it / nqe;
+    const int q0 = (q_first + it % nqe) * T;
+    const size_t qoff = (bhq * Sq + q0) * D;
+    float* dst = sQdO + st * 2 * TILE;
+    stage_tile_f32<D, LD, NT>(dst, q + qoff, Sq - q0, tid);
+    stage_tile_f32<D, LD, NT>(dst + TILE, dout + qoff, Sq - q0, tid);
+    stage_vec<NT>(sLD + st * 2 * T, lse + bhq * Sq + q0, Sq - q0, T, tid);
+    stage_vec<NT>(sLD + st * 2 * T + T, delta + bhq * Sq + q0, Sq - q0, T,
+                  tid);
+  };
+  if (n_iter > 0) stage_pair(0, 0);
+  cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  float ak[4][D / 16], av[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) ak[i][n] = av[i][n] = 0.f;
+  }
+  for (int it = 0; it < n_iter; ++it) {
+    const int st = it & 1;
+    const int q0 = (q_first + it % nqe) * T;
+    const float* cQ = sQdO + st * 2 * TILE;
+    const float* cdO = cQ + TILE;
+    const float* cL = sLD + st * 2 * T;
+    const float* cDl = cL + T;
+    cp_async_wait_all();
+    __syncthreads();                             // pair it in; it - 1 done
+    if (it + 1 < n_iter) {
+      stage_pair(it + 1, st ^ 1);
+      cp_async_commit();
+    }
+    float s[4][4] = {}, dp[4][4] = {};
+    mm_nt_f32<D, LD>(sK, cQ, ty, tx, s);
+    mm_nt_f32<D, LD>(sV, cdO, ty, tx, dp);
+    const bool edge = (causal && q0 < k0 + T - 1) || q0 + T > Sq
+                      || k0 + T > Skv;
+    float lse2[4], dlt[4];                       // this thread's q columns
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      lse2[j] = cL[tx + 16 * j] * kLog2e;
+      dlt[j] = cDl[tx + 16 * j];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p = fast_exp2(fmaf(s[i][j], sl2, -lse2[j]));
+        if (edge) {
+          const int kr = k0 + ty + 16 * i, qr = q0 + tx + 16 * j;
+          if (qr >= Sq || kr >= Skv || (causal && qr < kr)) p = 0.f;
+        }
+        sP[(ty + 16 * i) * LDP + tx + 16 * j] = p;
+        s[i][j] = p * (dp[i][j] - dlt[j]);       // dS^T
+        if constexpr (C::DKV_PS2) sdS[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
+      }
+    }
+    __syncthreads();
+    mm_nn_f32<D, LDP, LD>(sP, cdO, ty, tx, av);
+    if constexpr (!C::DKV_PS2) {                 // dS^T in turn, over P^T
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sdS[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
+      }
+      __syncthreads();
+    }
+    mm_nn_f32<D, LDP, LD>(sdS, cQ, ty, tx, ak);
+  }
+  cp_async_wait_all();                           // K, V of a block with no pair
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kr = k0 + ty + 16 * i;
+    if (kr < Skv) {
+      const size_t o = (static_cast<size_t>(bkv) * Skv + kr) * D;
+      store_cols_f32<D>(dk + o, tx, ak[i], scale);
+      store_cols_f32<D>(dv + o, tx, av[i], 1.f);
     }
   }
 }
@@ -1216,29 +1441,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     fwd_wgmma<D>(&tq, &tk, &tv, out, lse, Hq, Hkv, Sq, Skv, scale, causal,
                  fwd_smem);
   }
-}
-
-// The split backward, float32 only (bfloat16 takes flash_bwd_kernel).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* q, const float* k, const float* v,
-                    const float* dout, const float* lse, const float* delta,
-                    float* dq, int Hq, int Hkv, int Sq, int Skv, float scale,
-                    int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  dq_simt<D>(q, k, v, dout, lse, delta, dq, Hq, Hkv, Sq, Skv, scale, causal,
-             smem);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* q, const float* k, const float* v,
-                     const float* dout, const float* lse, const float* delta,
-                     float* dk, float* dv, int Hq, int Hkv, int Sq, int Skv,
-                     float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  dkv_simt<D>(q, k, v, dout, lse, delta, dk, dv, Hq, Hkv, Sq, Skv, scale,
-              causal, smem);
 }
 
 // ------------------------------------------------------------------ host
@@ -1345,16 +1547,28 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// The f32 kernels take all of an SM's shared memory as such, so that two
+// blocks fit where the budget allows it.
+template <typename K>
+cudaError_t prepare_f32(K kernel, size_t smem) {
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 template <int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, Shape s, float scale, int causal,
                    cudaStream_t st) {
-  using C = SimtCfg<D>;
-  cudaError_t err = prepare(flash_bwd_dq_kernel<D>, C::dq_smem);
+  using C = F32Bwd<D>;
+  cudaError_t err = prepare_f32(flash_bwd_dq_kernel<D>, C::dq_smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s.Sq + C::BQ - 1) / C::BQ, s.B * s.Hq);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, C::dq_smem, st>>>(
+  // q tiles in y, so that every head's heaviest causal tile goes first
+  const dim3 grid(s.B * s.Hq, (s.Sq + C::T - 1) / C::T);
+  flash_bwd_dq_kernel<D><<<grid, C::NT, C::dq_smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1367,11 +1581,12 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, Shape s, float scale, int causal,
                     cudaStream_t st) {
-  using C = SimtCfg<D>;
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<D>, C::dkv_smem);
+  using C = F32Bwd<D>;
+  cudaError_t err = prepare_f32(flash_bwd_dkv_kernel<D>, C::dkv_smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s.Skv + C::BKV - 1) / C::BKV, s.B * s.Hkv);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, C::dkv_smem, st>>>(
+  // kv tiles in y: the heaviest causal tiles (the first) go first
+  const dim3 grid(s.B * s.Hkv, (s.Skv + C::T - 1) / C::T);
+  flash_bwd_dkv_kernel<D><<<grid, C::NT, C::dkv_smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),

@@ -5,12 +5,16 @@ Layout contract: q (B, 1, H, D); k/v cache (B, S, KV, D); lengths (B,)
 int32, the valid prefix per slot including the new token. Returns
 (B, 1, H, D) in q's dtype.
 
-On a CUDA tensor :func:`decode_attention` launches the hand-written kernel
-``decode_attention_kernel`` of ``ray_tpu_torch/csrc/decode_attention.cu``
-(it raises on what the kernel does not take); on a CPU tensor it computes
-the plain version :func:`decode_attention_reference`. Unlike the TPU
-kernel, S is not padded to a block multiple: the kernel reads
-``min(length, S)`` rows of each slot.
+On a CUDA tensor :func:`decode_attention` launches the hand-written
+split-KV kernel ``decode_attention_kernel`` of
+``ray_tpu_torch/csrc/decode_attention.cu`` (the paged kernel's body over
+contiguous rows; it raises on what the kernel does not take); on a CPU
+tensor it computes the plain version :func:`decode_attention_reference`.
+Unlike the TPU kernel, S is not padded to a block multiple: the kernel
+reads ``min(length, S)`` rows of each slot, in splits of
+:data:`SPLIT_ROWS` rows. Both decode kernels write their splits' partials
+to one workspace kept per device (:func:`workspace`), so calls on one
+device must run in stream order.
 """
 
 from __future__ import annotations
@@ -23,9 +27,14 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)      # the decode kernels' instantiations
+GROUPS = (1, 2, 4, 8)
+SPLIT_ROWS = 128                   # rows of one split (paged: whole blocks)
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# tensors (q, caches, lengths, out); B, H, KV, D, S; scale, dtype, stream
-ARGTYPES = {"decode_attention_launch": [_P] * 5 + [_I] * 5 + [_F, _I, _P]}
+# tensors (q, caches, lengths, out, partials, arrivals); B, H, KV, D, S,
+# rows a split; scale, dtype, stream
+ARGTYPES = {"decode_attention_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _P]}
 
 
 def decode_attention_reference(q, k_cache, v_cache, lengths, *,
@@ -76,6 +85,41 @@ def check_operands(q, k, v, index_tensors, D: int) -> int:
     return _DTYPES[q.dtype]
 
 
+def check_supported(D: int, group: int, kernel: str) -> None:
+    """Raise ValueError unless ``kernel`` has an instantiation for head dim
+    ``D`` and ``group`` query heads a kv head."""
+    if D not in HEAD_DIMS or group not in GROUPS:
+        raise ValueError(f"{kernel} takes head_dim in {HEAD_DIMS} and groups "
+                         f"in {GROUPS}, got {D}, {group}")
+
+
+def slot_splits(S: int) -> int:
+    """Splits a slot of a contiguous S-row cache spans."""
+    return -(-S // SPLIT_ROWS)
+
+
+# device -> (arrivals, partials): the decode kernels' int32 tickets, which
+# hold zeros between calls (the last split resets its own), and their f32
+# partials; grown as needed, shared by the calls on a device (both
+# kernels), which run in stream order
+_scratch = {}
+
+
+def workspace(device, B: int, H: int, KV: int, D: int, splits: int):
+    """The workspace of a call over B slots with ``splits`` splits a slot:
+    arrival tickets (at least B·KV int32, zeros) and partials (at least
+    B·H·splits·(D+2) f32: each split's accumulator, max and sum per q
+    head)."""
+    n_arrivals, n_partials = B * KV, B * H * splits * (D + 2)
+    arrivals, partials = _scratch.get(device, (None, None))
+    if arrivals is None or arrivals.numel() < n_arrivals:
+        arrivals = torch.zeros(n_arrivals, dtype=torch.int32, device=device)
+    if partials is None or partials.numel() < n_partials:
+        partials = torch.empty(n_partials, dtype=torch.float32, device=device)
+    _scratch[device] = arrivals, partials
+    return arrivals, partials
+
+
 def raise_on_error(rc: int, kernel: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
@@ -98,12 +142,15 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: float):
             or lengths.shape != (B,):
         raise ValueError("decode_attention: shapes do not match the "
                          "(B,1,H,D) / (B,S,KV,D) / (B,) contract")
+    check_supported(D, H // KV, "decode_attention_kernel")
+    arrivals, partials = workspace(q.device, B, H, KV, D, slot_splits(S))
     out = torch.empty_like(q)
     fn = _build.load("decode_attention").decode_attention_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ARGTYPES["decode_attention_launch"]
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), B, H, KV, D, S, float(scale),
+            lengths.data_ptr(), out.data_ptr(), partials.data_ptr(),
+            arrivals.data_ptr(), B, H, KV, D, S, SPLIT_ROWS, float(scale),
             dtype, torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(rc, "decode_attention_kernel")
     decode_attention.launches += 1

@@ -15,9 +15,10 @@ Layout contract:
 On a CUDA tensor :func:`paged_decode_attention` launches the hand-written
 split-KV kernel ``paged_decode_attention_kernel`` of
 ``ray_tpu_torch/csrc/decode_attention.cu`` (one kernel a call; each split
-of :data:`SPLIT_ROWS` rows writes a partial to a workspace kept per device,
-and the last split of a slot and kv head to finish combines them); on a CPU
-tensor it computes the plain version :func:`paged_attention_reference`.
+of :data:`SPLIT_ROWS` rows writes a partial to the workspace kept per device
+that the slot kernel shares, and the last split of a slot and kv head to
+finish combines them); on a CPU tensor it computes the plain version
+:func:`paged_attention_reference`.
 """
 
 from __future__ import annotations
@@ -27,12 +28,11 @@ import ctypes
 import torch
 
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.decode_attention import check_operands, raise_on_error
+from ray_tpu_torch.ops.decode_attention import (SPLIT_ROWS, check_operands,
+                                                check_supported,
+                                                raise_on_error, workspace)
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)      # the kernel's instantiations
-GROUPS = (1, 2, 4, 8)
-SPLIT_ROWS = 128                   # rows of one split, in whole pool blocks
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # tensors (q, pools, tables, lengths, out, partials, arrivals); B, H, KV, D,
@@ -71,22 +71,6 @@ def blocks_per_split(block_size: int) -> int:
     return max(1, SPLIT_ROWS // block_size)
 
 
-# device -> (arrivals, partials): the kernel's int32 tickets, which hold
-# zeros between calls (the last split resets its own), and its f32 partials;
-# grown as needed, shared by the calls on a device, which run in stream order
-_scratch = {}
-
-
-def _workspace(device, n_arrivals: int, n_partials: int):
-    arrivals, partials = _scratch.get(device, (None, None))
-    if arrivals is None or arrivals.numel() < n_arrivals:
-        arrivals = torch.zeros(n_arrivals, dtype=torch.int32, device=device)
-    if partials is None or partials.numel() < n_partials:
-        partials = torch.empty(n_partials, dtype=torch.float32, device=device)
-    _scratch[device] = arrivals, partials
-    return arrivals, partials
-
-
 def paged_decode_attention(q, k_pool, v_pool, tables, lengths, *,
                            scale: float):
     """q (B,1,H,D); k/v_pool (NB,bs,KV,D); tables (B,MBS) int32;
@@ -107,14 +91,9 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths, *,
             or tables.shape != (B, MBS) or lengths.shape != (B,):
         raise ValueError("paged_decode_attention: shapes do not match the "
                          "layout contract")
-    if D not in HEAD_DIMS or H // KV not in GROUPS:
-        raise ValueError(f"paged_decode_attention_kernel takes head_dim in "
-                         f"{HEAD_DIMS} and groups in {GROUPS}, got {D}, "
-                         f"{H // KV}")
+    check_supported(D, H // KV, "paged_decode_attention_kernel")
     bps = blocks_per_split(bs)
-    splits = -(-MBS // bps)
-    arrivals, partials = _workspace(q.device, B * KV,
-                                    B * H * splits * (D + 2))
+    arrivals, partials = workspace(q.device, B, H, KV, D, -(-MBS // bps))
     out = torch.empty_like(q)
     fn = _build.load("decode_attention").paged_decode_attention_launch
     fn.restype = ctypes.c_int

@@ -138,6 +138,53 @@ def test_paged_split_kernel_deterministic(cuda_device, dtype):
     assert torch.equal(first, second)
 
 
+# K4 shares K3's split-KV body over contiguous rows: splits of SPLIT_ROWS
+# rows of the (B, S, KV, D) cache. Lengths end on a split boundary, either
+# side of it, inside the first split, at S (every split) and past it (a
+# stale slot reads S rows).
+SLOT_SPLIT_CASES = [  # H, KV, D, S
+    (8, 8, 16, 300),                   # group 1, three splits, a short last
+    (8, 4, 32, 256),                   # group 2
+    (8, 2, 64, 384),                   # group 4
+    (16, 2, 128, 300),                 # group 8
+    (32, 8, 128, 2048),                # 8b's heads and cache: sixteen splits
+]
+
+
+def _slot_split_inputs(device, dtype, H, KV, D, S, seed=0):
+    split = tdec.SPLIT_ROWS
+    lengths = [split - 1, split, split + 1, 0, 1, S, S + 1, 2 * split + 1]
+    B = len(lengths)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    return (rand(B, 1, H, D), rand(B, S, KV, D), rand(B, S, KV, D),
+            torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SLOT_SPLIT_CASES)
+def test_slot_split_kernel_matches_plain(cuda_device, dtype, case):
+    """K4 against its plain version at split-boundary lengths, and bit for
+    bit equal to itself in a second run (splits combine in split order)."""
+    q, kc, vc, lengths = _slot_split_inputs(cuda_device, dtype, *case)
+    D = case[2]
+    n = tdec.decode_attention.launches
+    got = tdec.decode_attention(q, kc, vc, lengths, scale=D ** -0.5)
+    again = tdec.decode_attention(q, kc, vc, lengths, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert tdec.decode_attention.launches == n + 2
+    assert torch.equal(got, again)
+    want = tdec.decode_attention_reference(q, kc, vc, lengths,
+                                           scale=D ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+    assert torch.count_nonzero(got[lengths.tolist().index(0)]) == 0
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_unsupported_dtype(cuda_device):
     q, kp, vp, tables, lengths = _inputs(cuda_device, torch.float16)
@@ -289,6 +336,35 @@ def test_flash_fwd_bf16_matches_plain(cuda_device, D, causal, group):
     want_out, want_lse = tfa.flash_attention_fwd_reference(q, k, v, **kw)
     _close(out, want_out)
     _close(lse, want_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_bwd_f32_matches_plain(cuda_device, D, causal, group):
+    """The f32 backward (K2a dq, K2b dk/dv: 64 x 64 tiles) at every head
+    dim, with lengths that are no multiple of a tile (Sq != Skv without
+    the causal mask), against the plain version, and bit for bit equal to
+    itself in a second run."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    Sq, Skv = (200, 200) if causal else (150, 263)
+    q, k, v, do = _flash_inputs(cuda_device, torch.float32, 1, 2 * group, 2,
+                                Sq, Skv, D)
+    kw = dict(causal=causal, scale=D ** -0.5)
+    out, lse = tfa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (do * out).sum(-1)
+    n = dict(tfa.flash_attention_bwd.launches)
+    first = tfa.flash_attention_bwd(q, k, v, lse, delta, do, **kw)
+    second = tfa.flash_attention_bwd(q, k, v, lse, delta, do, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == {
+        "bwd": n["bwd"], "dq": n["dq"] + 2, "dkv": n["dkv"] + 2}
+    want = tfa.flash_attention_bwd_reference(q, k, v, lse, delta, do, **kw)
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a, b)
+        _close(a, w)
 
 
 @pytest.mark.cuda

@@ -84,14 +84,17 @@ def test_paged_plain_matches_jax_reference(dtype):
 
 @pytest.mark.parametrize("group", [1, 2])
 def test_slot_plain_matches_jax_kernel_interpret(group):
-    S, block_s = 32, 16
+    S, block_s = 144, 48
     h = KV * group
     rng = np.random.default_rng(2)
-    q = rng.standard_normal((5, 1, h, D)).astype(np.float32)
-    kc = rng.standard_normal((5, S, KV, D)).astype(np.float32)
-    vc = rng.standard_normal((5, S, KV, D)).astype(np.float32)
-    # empty, 1, a non-multiple, full, stale (S + 1)
-    lengths = np.asarray([0, 1, 21, S, S + 1], np.int32)
+    # empty, 1, a non-multiple, either side of the kernel's first split
+    # boundary (SPLIT_ROWS = 128), full, stale (S + 1)
+    lengths = np.asarray([0, 1, 21, 127, 128, 129, S, S + 1], np.int32)
+    assert tdec.SPLIT_ROWS == 128
+    n = len(lengths)
+    q = rng.standard_normal((n, 1, h, D)).astype(np.float32)
+    kc = rng.standard_normal((n, S, KV, D)).astype(np.float32)
+    vc = rng.standard_normal((n, S, KV, D)).astype(np.float32)
     want = jdec.decode_attention(
         jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
         jnp.asarray(lengths), scale=D ** -0.5, block_s=block_s,
@@ -185,28 +188,54 @@ def test_launch_argtypes_match_cuda_source():
     assert set(params) == set(argtypes)
     for name, types in argtypes.items():
         assert [kind[t] for t in types] == params[name], name
-    # K3 takes its workspace (partials, arrivals) after out
+    # both take their workspace (partials, arrivals) after out
     assert params["paged_decode_attention_launch"][:8] == ["ptr"] * 8
+    assert params["decode_attention_launch"][:7] == ["ptr"] * 7
 
 
 def test_paged_split_workspace_is_kept_and_grown():
-    """K3's splits are whole pool blocks of about SPLIT_ROWS rows; its
-    workspace is allocated once per device and grown, never shrunk, and
-    new arrival tickets start at zero."""
+    """K3's splits are whole pool blocks of about SPLIT_ROWS rows, K4's
+    SPLIT_ROWS rows; both kernels share one workspace, allocated once per
+    device and grown, never shrunk, whose new arrival tickets start at
+    zero, sized B·KV tickets and B·H·splits·(D+2) partials."""
+    assert tpaged.SPLIT_ROWS is tdec.SPLIT_ROWS
     assert [tpaged.blocks_per_split(bs) for bs in (16, 64, 128, 256)] == \
         [8, 2, 1, 1]
+    assert [tdec.slot_splits(S) for S in (1, 128, 129, 2048, 2049)] == \
+        [1, 1, 2, 16, 17]
     dev = torch.device("cpu")
-    saved = tpaged._scratch.pop(dev, None)
+    saved = tdec._scratch.pop(dev, None)
     try:
-        arrivals, partials = tpaged._workspace(dev, 4, 100)
-        again = tpaged._workspace(dev, 2, 50)
+        # K4 at B=3, H=8, KV=2, D=16, S=300: three splits a slot
+        arrivals, partials = tdec.workspace(dev, 3, 8, 2, 16,
+                                            tdec.slot_splits(300))
+        assert arrivals.numel() == 3 * 2 and not arrivals.any()
+        assert partials.numel() == 3 * 8 * 3 * 18
+        # a smaller call, from either wrapper, takes the same tensors
+        again = tpaged.workspace(dev, 1, 8, 2, 16, 1)
         assert again[0] is arrivals and again[1] is partials
-        grown, same = tpaged._workspace(dev, 8, 100)
+        # a larger one grows them; new tickets start at zero
+        grown, same = tdec.workspace(dev, 4, 8, 2, 16, 1)
         assert grown.numel() == 8 and not grown.any() and same is partials
     finally:
-        tpaged._scratch.pop(dev, None)
+        tdec._scratch.pop(dev, None)
         if saved is not None:
-            tpaged._scratch[dev] = saved
+            tdec._scratch[dev] = saved
+
+
+@pytest.mark.parametrize("D,group,ok", [
+    (16, 1, True), (128, 8, True), (64, 4, True), (32, 2, True),
+    (256, 4, False), (8, 1, False), (48, 2, False), (64, 3, False),
+    (128, 16, False)])
+def test_decode_kernels_refuse_unsupported_shapes(D, group, ok):
+    """Both decode wrappers ask check_supported before a launch: head dims
+    16-128 and groups 1-8 have an instantiation, anything else raises."""
+    for kernel in ("decode_attention_kernel", "paged_decode_attention_kernel"):
+        if ok:
+            tdec.check_supported(D, group, kernel)
+        else:
+            with pytest.raises(ValueError, match=kernel):
+                tdec.check_supported(D, group, kernel)
 
 
 def test_build_reports_compiler_failure(tmp_path, monkeypatch):

@@ -122,9 +122,10 @@ def test_mha_reference_matches_jax(dtype, causal):
 # ------------------------------------------------------------ import hygiene
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "torch_decode_profile.py"),
-             os.path.join(REPO, "scripts", "torch_train_profile.py")]
+    scripts = os.path.join(REPO, "scripts")
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
+        if n.endswith(".py") and n.startswith(("torch_", "flash_"))]
     for root, _, names in os.walk(os.path.join(REPO, "ray_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
