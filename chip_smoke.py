@@ -26,8 +26,9 @@ Phases (any failure exits non-zero, and no result line is printed):
   5. the 8b configuration served on the card through LLMEngine, paged then
      slot, from random weights: every output complete, logits finite, and
      each kernel launched once per layer per decode step;
-  6. flash attention: the forward (K1) and the backward (bf16: the one
-     kernel flash_bwd_kernel; f32: K2a dq and K2b dk/dv) against their
+  6. flash attention: the forward (K1; bf16: flash_fwd_kernel, f32:
+     flash_fwd_f32_kernel) and the backward (bf16: the one kernel
+     flash_bwd_kernel; f32: K2a dq and K2b dk/dv) against their
      plain versions, in bf16 and f32, at the 1b_bench shapes (B=8, Hq=32,
      Hkv=8, S=2048, D=64, causal), at D=128, and at a ragged S=1000 with
      group 1, non-causal, row by row under the tolerance
@@ -40,8 +41,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      (flash_attention_with_lse and its autograd backward) against the
      plain versions on the same tensors;
   7. the f32 debug model trained 5 steps on the card and on the CPU from
-     the same weights and batch: same losses and parameters, through K1
-     and the f32 K2a, K2b;
+     the same weights and batch: same losses and parameters, through the
+     f32 kernels flash_fwd_f32_kernel, K2a and K2b;
   8. 1b_bench (the JAX package's headline training configuration) trained
      at full width and depth through ray_tpu_torch.bench.run: finite,
      falling loss, and each flash kernel launched exactly as the path
@@ -120,17 +121,21 @@ def bound_ms(rows, B, H, KV, D, itemsize, dtype_name, index_bytes):
 
 
 def kernel_label(mangled):
-    """flash_bwd_kernel<64>, flash_fwd_kernel<bf16,64>,
+    """flash_fwd_kernel<64>, flash_fwd_f32_kernel<64>,
     paged_decode_attention_kernel<bf16,128,4>, ... from a mangled kernel
-    name."""
-    m = re.search(r"\d([a-z_]+?_kernel)I(.+?E)Ev", mangled)
-    if not m:
-        return mangled[:60]
-    args = m.group(2)
-    kind = ("bf16" if "__nv_bfloat16" in args
-            else "f32" if args.startswith("f") else "")
-    return f"{m.group(1)}<" + ",".join(
-        [kind] * bool(kind) + re.findall(r"Li(\d+)E", args)) + ">"
+    name: the template whose length-prefixed name ends in ``_kernel``."""
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        digits = m.group(1)
+        start = m.start() + len(digits)
+        name = mangled[start:start + int(digits)]
+        args = re.match(r"I(.+?E)Ev", mangled[start + len(name):])
+        if name.endswith("_kernel") and args:
+            args = args.group(1)
+            kind = ("bf16" if "__nv_bfloat16" in args
+                    else "f32" if args.startswith("f") else "")
+            return f"{name}<" + ",".join(
+                [kind] * bool(kind) + re.findall(r"Li(\d+)E", args)) + ">"
+    return mangled[:60]
 
 
 # ------------------------------------------------------------- phase 3
@@ -857,11 +862,14 @@ def main() -> int:
             "float32": k[kind_]["float32"]})
     fl = report["flash"]["1b_bench"]
     # the bf16 kernels' launches come from phase 8 (1b_bench), the f32
-    # backward's from phase 7 (debug, f32), each read around its own run
+    # kernels' from phase 7 (debug, f32), each read around its own run
     for name, kern, dname, replaces, launches in (
             ("flash_fwd_kernel", "fwd", "bfloat16",
              "ray_tpu/ops/pallas/flash_attention.py:90",
              report["train"]["launches"]["fwd"]),
+            ("flash_fwd_f32_kernel", "fwd", "float32",
+             "ray_tpu/ops/pallas/flash_attention.py:90",
+             report["debug_train"]["launches"]["fwd"]),
             ("flash_bwd_kernel", "bwd", "bfloat16",
              "ray_tpu/ops/pallas/flash_attention.py:273",
              report["train"]["launches"]["bwd"]),
@@ -882,8 +890,6 @@ def main() -> int:
             **{key: fl[dname][kern][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "dtype": dname, "shape": fl[dname]["shape"]}
-        if kern == "fwd":
-            rec["float32"] = fl["float32"]["fwd"]
         lines.append(rec)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),

@@ -2,9 +2,10 @@
 // backward of causal or full attention, GQA-aware, in the (B, H, S, D)
 // layout, for float and bfloat16, D in {16, 32, 64, 128}.
 //
-//   flash_fwd_kernel      replaces the Pallas TPU kernel
+//   flash_fwd_kernel      bfloat16: replaces the Pallas TPU kernel
 //     ray_tpu/ops/pallas/flash_attention.py::flash_attention_fwd_pallas
 //     (kernel _fwd_kernel): out and the f32 log-sum-exp per query row.
+//   flash_fwd_f32_kernel  float32: the same function.
 //   flash_bwd_kernel      bfloat16: replaces both calls of
 //     flash_attention_bwd_pallas (kernels _bwd_dq_kernel, _bwd_dkv_kernel)
 //     in one pass: dQ = scale * dS K, dV = P^T dO, dK = scale * dS^T Q.
@@ -77,15 +78,15 @@
 // with its mirror per block, did not make it faster.
 //
 // Float32 runs on the CUDA cores with f32 FMA (no TF32; wgmma has no f32
-// operands), bound by operations at 67 TFLOP/s. The forward's f32
-// instantiation (fwd_simt, chosen by dtype) runs the bf16 loops with
-// 32-row tiles, 4 threads a row, every score a D-long dot product over two
-// shared-memory rows. The f32 backward is two register-tiled kernels,
-// flash_bwd_dq_kernel and flash_bwd_dkv_kernel (design above them): 64 x 64
-// score tiles, 256 threads each holding a 4 x 4 micro-tile of S and dP,
-// operands read from shared memory as float4 so that one load feeds 16
-// FMAs, cp.async double buffering, dK and dV summed over the GQA group in
-// registers (both kernels give the same bits every run).
+// operands), bound by operations at 67 TFLOP/s, in three register-tiled
+// kernels (designs above them): the forward flash_fwd_f32_kernel and the
+// backward flash_bwd_dq_kernel and flash_bwd_dkv_kernel. Each works on
+// 64 x 64 score tiles with 256 threads, each thread holding a 4 x 4
+// micro-tile of the scores, operands read from shared memory as float4 so
+// that one load feeds 16 FMAs, tiles loaded by cp.async into two stages,
+// exp2 with the scale folded in, masks on edge tiles only. Each output tile
+// is owned by one block, and dK and dV sum the GQA group in registers: the
+// three kernels give the same bits every run.
 //
 // Precision of bfloat16: P is rounded to bf16 before P V, as the TPU kernel
 // does. The TPU backward takes dS K, dS^T Q and P^T dO in f32; here P and dS
@@ -98,25 +99,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
 constexpr int kMaxSmem = 232448;           // bytes a block may use on H100
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-template <int D>
-struct SimtCfg {                                 // the f32 forward, fwd_simt
-  static constexpr int BQ = 32, BKV = 32;
-  static constexpr int LD = D + 1;
-  static constexpr size_t fwd_smem =
-      (BQ * LD + BKV * LD + BKV * D + BQ * (BKV + 1)) * sizeof(float);
-};
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -398,14 +388,8 @@ __device__ __forceinline__ void stage_vec(float* dst, const float* src,
   }
 }
 
-template <typename T, int D>
-struct FwdCfg {                                  // float: fwd_simt
-  static constexpr int BQ = SimtCfg<D>::BQ, NT = kThreads;
-  static constexpr size_t smem = SimtCfg<D>::fwd_smem;
-};
-
 template <int D>
-struct FwdCfg<bf16, D> {
+struct FwdCfg {                                  // the bf16 forward
   // 128 q rows a block, 64 a warpgroup, so that each K/V tile serves 128
   // rows. 64 kv rows a tile below D = 128 keep a thread under 128
   // registers, so two blocks share an SM (128 took 180 registers at D = 64,
@@ -510,7 +494,7 @@ __device__ __forceinline__ void fwd_wgmma(const CUtensorMap* tq,
                                           int Hkv, int Sq, int Skv,
                                           float scale, int causal,
                                           unsigned char* smem) {
-  using C = FwdCfg<bf16, D>;
+  using C = FwdCfg<D>;
   using SW = Swz<D>;
   constexpr int BQ = C::BQ, BKV = C::BKV, ST = C::STAGES;
   constexpr int AHEAD = C::AHEAD;
@@ -940,127 +924,31 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ------------------------------------------------------------------ f32
 
-template <int LDS>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src,
-                                          int avail, int nrows, int D) {
-  for (int i = threadIdx.x; i < nrows * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * LDS + c] = r < avail ? src[static_cast<size_t>(r) * D + c] : 0.f;
-  }
-}
-
-__device__ __forceinline__ float dot_f32(const float* a, const float* b,
-                                         int D) {
-  float acc = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < D; ++d) acc = fmaf(a[d], b[d], acc);
-  return acc;
-}
-
-// 4 threads per row (the lanes of a quad), 32 rows per block.
-template <int D>
-__device__ __forceinline__ void fwd_simt(const float* __restrict__ q,
-                                         const float* __restrict__ k,
-                                         const float* __restrict__ v,
-                                         float* __restrict__ out,
-                                         float* __restrict__ lse, int Hq,
-                                         int Hkv, int Sq, int Skv,
-                                         float scale, int causal,
-                                         unsigned char* smem) {
-  using C = SimtCfg<D>;
-  constexpr int BQ = C::BQ, BKV = C::BKV, LD = C::LD, NC = BKV / 4;
-  constexpr int ND = D / 4, LP = BKV + 1;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
-  const int q0 = qt * BQ;
-  const int row = threadIdx.x >> 2, tq = threadIdx.x & 3;
-  const int r = q0 + row;
-
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BKV * LD;
-  float* sP = sV + BKV * D;
-  stage_f32<LD>(sQ, q + (static_cast<size_t>(bh) * Sq + q0) * D, Sq - q0,
-                BQ, D);
-  const float* kb = k + static_cast<size_t>(kvh) * Skv * D;
-  const float* vb = v + static_cast<size_t>(kvh) * Skv * D;
-
-  float acc[ND];
-#pragma unroll
-  for (int e = 0; e < ND; ++e) acc[e] = 0.f;
-  float m = kNegInf, l = 0.f;
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();
-    stage_f32<LD>(sK, kb + static_cast<size_t>(k0) * D, Skv - k0, BKV, D);
-    stage_f32<D>(sV, vb + static_cast<size_t>(k0) * D, Skv - k0, BKV, D);
-    __syncthreads();
-    float s[NC];
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int c = tq + 4 * j, col = k0 + c;
-      const bool ok = col < Skv && (!causal || r >= col);
-      s[j] = ok ? dot_f32(sQ + row * LD, sK + c * LD, D) * scale : neg_inf();
-      mx = fmaxf(mx, s[j]);
-    }
-    const float m_new = fmaxf(m, quad_max(mx));
-    const float alpha = expf(m - m_new);
-    m = m_new;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const float p = expf(s[j] - m_new);
-      sum += p;
-      sP[row * LP + tq + 4 * j] = p;
-    }
-    l = l * alpha + quad_sum(sum);
-    __syncwarp();
-#pragma unroll
-    for (int e = 0; e < ND; ++e) {
-      const int d = tq + 4 * e;
-      float a = acc[e] * alpha;
-      for (int c = 0; c < BKV; ++c) a = fmaf(sP[row * LP + c], sV[c * D + d], a);
-      acc[e] = a;
-    }
-  }
-  if (r < Sq) {
-    const float ls = l == 0.f ? 1.f : l;
-    float* ob = out + (static_cast<size_t>(bh) * Sq + r) * D;
-#pragma unroll
-    for (int e = 0; e < ND; ++e) ob[tq + 4 * e] = acc[e] / ls;
-    if (tq == 0) {
-      lse[static_cast<size_t>(bh) * Sq + r] = l == 0.f ? kNegInf : m + logf(l);
-    }
-  }
-}
-
-// The float32 backward, register-tiled on the CUDA cores (FP32 FMA; no
-// TF32: wgmma has no f32 operands). Both kernels work on 64 x 64 tiles of
+// The float32 kernels, register-tiled on the CUDA cores (FP32 FMA; no
+// TF32: wgmma has no f32 operands). All three work on 64 x 64 tiles of
 // scores with 256 threads in a 16 x 16 grid: thread (ty, tx) owns rows
 // ty + 16 i and columns tx + 16 j (i, j < 4) of a tile, a 4 x 4 micro-tile
-// of S and of dP in registers. Operands sit in shared memory row-major,
+// of S (and of dP) in registers. Operands sit in shared memory row-major,
 // rows padded to D + 4 floats: a float4 load (4 values along D) of each of
-// the micro-tile's 4 rows and 4 columns feeds 4 x 4 x 4 = 64 FMAs, where
-// the SIMT split did two 4-byte loads per FMA. Lanes of a warp sit 4 rows
-// by 8 columns, so that each load instruction of a warp reads its 8 or 4
-// distinct rows from distinct banks (the padding staggers rows by 4 banks)
-// and 8 lanes (rows) or 4 (columns) read each address at once: a warp takes
-// one shared wavefront per 8 FMA instructions, where the SM issues 4 FMA
-// instructions a clock against one wavefront. At 1b_bench both kernels run
-// at 45-48% of the FP32 peak, and removing exp2, masks or loads saves
-// little: the FMA loops themselves set the time
-// (scripts/flash_bwd_f32_ablation.py, PERF.md). The second products read P or dS from
-// shared memory (rows of 72 floats) the same way, 4 rows x 4 kv (or q)
-// values a float4, against rows of K, Q or dO read as vectors of the
-// thread's own D columns. Tiles come by cp.async into two stages: the next
-// tile lands while this one computes. exp2 with scale*log2(e) folded into
-// one FMA; masks only on tiles that cross the diagonal or a ragged tail;
-// the heaviest causal tiles start first.
+// the micro-tile's 4 rows and 4 columns feeds 4 x 4 x 4 = 64 FMAs, where a
+// scalar dot product does two 4-byte loads per FMA. In the backward, lanes
+// of a warp sit 4 rows by 8 columns, so that each load instruction of a
+// warp reads its 8 or 4 distinct rows from distinct banks (the padding
+// staggers rows by 4 banks) and 8 lanes (rows) or 4 (columns) read each
+// address at once: a warp takes one shared wavefront per 8 FMA
+// instructions, where the SM issues 4 FMA instructions a clock against one
+// wavefront (the forward's lanes differ, see above it). At 1b_bench the
+// three kernels run at 45-48% of the FP32 peak, and removing exp2, masks or
+// loads saves little: the FMA loops themselves set the time
+// (scripts/flash_bwd_f32_ablation.py, PERF.md). The second products read P
+// or dS from shared memory the same way, 4 rows x 4 kv (or q) values a
+// float4, against rows of V, K, Q or dO read as vectors of the thread's own
+// D columns. Tiles come by cp.async into two stages: the next tile lands
+// while this one computes. exp2 with scale*log2(e) folded into one FMA;
+// masks only on tiles that cross the diagonal or a ragged tail; the
+// heaviest causal tiles start first.
 template <int D>
-struct F32Bwd {
+struct F32Cfg {
   static constexpr int NT = 256, T = 64;         // threads, rows of a tile
   static constexpr int LD = D + 4;               // floats a staged row
   static constexpr int LDP = T + 8;              // floats a row of P or dS
@@ -1083,6 +971,12 @@ struct F32Bwd {
   static constexpr size_t dkv_smem =
       dkv_base + (DKV_PS2 ? 2 : 1) * T * LDP * sizeof(float);
   static constexpr int DKV_BLOCKS = D <= 32 ? 2 : 1;
+  // fwd: Q, two stages of K, V, and P in rows of 80 floats, which puts the
+  // two rows of P a warp writes at once 16 banks apart (72 would overlap
+  // them by 8); two blocks an SM below D = 128 (105 KB at D = 64)
+  static constexpr int LDP_FWD = T + 16;
+  static constexpr size_t fwd_smem = (5 * TILE + T * LDP_FWD) * sizeof(float);
+  static constexpr int FWD_BLOCKS = D < 128 ? 2 : 1;
 };
 
 // Rows [0, 64) of a row-major (rows, D) f32 tile into shared rows of LD
@@ -1139,7 +1033,7 @@ template <int D, int LDP, int LD>
 __device__ __forceinline__ void mm_nn_f32(const float* P, const float* B,
                                           int ty, int tx,
                                           float (&acc)[4][D / 16]) {
-  constexpr int VW = F32Bwd<D>::VW, NV = F32Bwd<D>::NV;
+  constexpr int VW = F32Cfg<D>::VW, NV = F32Cfg<D>::NV;
 #pragma unroll 2
   for (int c = 0; c < 64; c += 4) {
     float4 p[4];
@@ -1178,7 +1072,7 @@ __device__ __forceinline__ void mm_nn_f32(const float* P, const float* B,
 template <int D>
 __device__ __forceinline__ void store_cols_f32(float* dst, int tx,
                                                const float* a, float mul) {
-  constexpr int VW = F32Bwd<D>::VW, NV = F32Bwd<D>::NV;
+  constexpr int VW = F32Cfg<D>::VW, NV = F32Cfg<D>::NV;
 #pragma unroll
   for (int m = 0; m < NV; ++m) {
     float* p = dst + 16 * VW * m + VW * tx;
@@ -1195,12 +1089,164 @@ __device__ __forceinline__ void store_cols_f32(float* dst, int tx,
   }
 }
 
+// The largest value, and the sum, of x over the 16 lanes of a half-warp.
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  }
+  return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The float32 forward (K1 in f32): one block per (b * Hq, 64-row q tile),
+// the heaviest causal tiles first. Q stays in shared memory; the block walks
+// the kv tiles up to the causal diagonal, tile kt + 1 landing by cp.async
+// while tile kt computes:
+//   S = Q K^T                 mm_nt_f32, a 4 x 4 micro-tile a thread
+//   m = max(m, rowmax(S) scale log2e), alpha = exp2(m_old - m)
+//   P = exp2(S scale log2e - m) into shared memory, l = l alpha + rowsum(P)
+//   O = O alpha + P V         mm_nn_f32 into acc[4][D / 16], the rows of
+//                             the thread's micro-tile, so that each thread
+//                             rescales O by its own rows' alpha
+// and writes O / l and lse = (m + log2 l) ln 2 (a row with no unmasked
+// column: O 0 and lse -1e30). Unlike the backward, which reads lse, the
+// forward needs each row's max over the 16 threads that own the row, every
+// tile. Lanes sit 2 rows by 16 columns a warp, so those 16 threads are one
+// half-warp: four shuffles reduce a row, and the rows of P a warp writes
+// are the rows it reads back for P V, so a warp barrier orders them. The
+// price: a float4 load of K (and of V) reads 16 rows, two shared wavefronts
+// where the backward's 4 x 8 lanes take one; with those lanes and the row
+// reductions through shared memory (a block barrier a tile) the kernel was
+// 4% slower at both D = 64 and 128. The running max starts at the finite
+// -1e30, so the first alpha is 0, not NaN; the row sums stay per thread,
+// over its own columns, until the end. Bound at 1b_bench: 137.4 GFLOP of
+// FMA, 2.05 ms at 67 TFLOP/s; the kernel takes 4.37 ms (47%), and without
+// P V 41% less, without loads after the first tiles 4% less, without exp2
+// and masks no less (scripts/flash_bwd_f32_ablation.py, PERF.md); with one
+// block an SM in place of two (118 registers a thread at D = 64) it took
+// 15% longer.
+template <int D>
+__global__ void __launch_bounds__(F32Cfg<D>::NT, F32Cfg<D>::FWD_BLOCKS)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                     int Skv, float scale, int causal) {
+  using C = F32Cfg<D>;
+  constexpr int T = C::T, LD = C::LD, LDP = C::LDP_FWD, NT = C::NT;
+  constexpr int TILE = C::TILE;
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr float kLn2 = 0.6931471805599453f;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sKV = sQ + TILE;                        // stage s: K, then V
+  float* sP = sKV + 4 * TILE;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tx = lane & 15, ty = 2 * warp + (lane >> 4);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T;   // heaviest first
+  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+  const float* kb = k + static_cast<size_t>(kvh) * Skv * D;
+  const float* vb = v + static_cast<size_t>(kvh) * Skv * D;
+  const int kv_end = causal ? min(Skv, q0 + T) : Skv;
+  const int n_kt = (kv_end + T - 1) / T;
+
+  stage_tile_f32<D, LD, NT>(sQ, q + (static_cast<size_t>(bh) * Sq + q0) * D,
+                            Sq - q0, tid);
+  stage_tile_f32<D, LD, NT>(sKV, kb, Skv, tid);
+  stage_tile_f32<D, LD, NT>(sKV + TILE, vb, Skv, tid);
+  cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  float m[4], l[4], acc[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) acc[i][n] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * T;
+    const float* cK = sKV + (kt & 1) * 2 * TILE;
+    const float* cV = cK + TILE;
+    cp_async_wait_all();
+    __syncthreads();                             // tile kt in; kt - 1 done
+    if (kt + 1 < n_kt) {
+      float* nK = sKV + ((kt + 1) & 1) * 2 * TILE;
+      const size_t o = static_cast<size_t>(k0 + T) * D;
+      stage_tile_f32<D, LD, NT>(nK, kb + o, Skv - k0 - T, tid);
+      stage_tile_f32<D, LD, NT>(nK + TILE, vb + o, Skv - k0 - T, tid);
+      cp_async_commit();
+    }
+    float s[4][4] = {};
+    mm_nt_f32<D, LD>(sQ, cK, ty, tx, s);
+    // Masks only on tiles that cross the diagonal or the ragged kv tail
+    // (rows past Sq are computed and never stored).
+    if ((causal && k0 + T - 1 > q0) || k0 + T > Skv) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = k0 + tx + 16 * j;
+          if (c >= Skv || (causal && c > q0 + ty + 16 * i)) {
+            s[i][j] = neg_inf();
+          }
+        }
+      }
+    }
+    float mx[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mx[i] = half_warp_max(
+          fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float m_new = fmaxf(m[i], mx[i] * sl2);
+      const float alpha = fast_exp2(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) acc[i][n] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = fast_exp2(fmaf(s[i][j], sl2, -m_new));
+        l[i] += p;
+        sP[(ty + 16 * i) * LDP + tx + 16 * j] = p;
+      }
+    }
+    __syncwarp();                                // this warp's rows of P
+    mm_nn_f32<D, LDP, LD>(sP, cV, ty, tx, acc);
+  }
+  float sum[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sum[i] = half_warp_sum(l[i]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= Sq) continue;
+    const size_t row = static_cast<size_t>(bh) * Sq + r;
+    store_cols_f32<D>(out + row * D, tx, acc[i],
+                      sum[i] == 0.f ? 0.f : 1.f / sum[i]);
+    if (tx == 0) {
+      lse[row] = sum[i] == 0.f ? kNegInf : (m[i] + log2f(sum[i])) * kLn2;
+    }
+  }
+}
+
 // dQ for one 64-row q tile of one head (K2a): walks the kv tiles up to the
 // diagonal, forming S = Q K^T and dP = dO V^T in registers, dS = P (dP -
 // delta) into shared memory, and dQ += dS K in registers; writes scale dQ.
 // One block owns its dQ tile: no atomics, the same bits every run.
 template <int D>
-__global__ void __launch_bounds__(F32Bwd<D>::NT, F32Bwd<D>::DQ_BLOCKS)
+__global__ void __launch_bounds__(F32Cfg<D>::NT, F32Cfg<D>::DQ_BLOCKS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
@@ -1208,7 +1254,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int Hq, int Hkv, int Sq, int Skv, float scale,
                     int causal) {
-  using C = F32Bwd<D>;
+  using C = F32Cfg<D>;
   constexpr int T = C::T, LD = C::LD, NT = C::NT, TILE = C::TILE;
   constexpr int LDS = C::LDS_DQ;
   constexpr float kLog2e = 1.4426950408889634f;
@@ -1302,7 +1348,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // in registers over the whole group; writes dK (times scale) and dV. No
 // atomics: the same bits every run.
 template <int D>
-__global__ void __launch_bounds__(F32Bwd<D>::NT, F32Bwd<D>::DKV_BLOCKS)
+__global__ void __launch_bounds__(F32Cfg<D>::NT, F32Cfg<D>::DKV_BLOCKS)
 flash_bwd_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -1311,7 +1357,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
                      float scale, int causal) {
-  using C = F32Bwd<D>;
+  using C = F32Cfg<D>;
   constexpr int T = C::T, LD = C::LD, LDP = C::LDP, NT = C::NT;
   constexpr int TILE = C::TILE;
   constexpr float kLog2e = 1.4426950408889634f;
@@ -1423,24 +1469,18 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
 
 // ------------------------------------------------------------------ kernels
 
-// f32 takes fwd_simt and bf16 fwd_wgmma, by type: wgmma has no f32
-// operands, and the f32 debug model trains card == CPU through fwd_simt.
-// (bf16 reads q, k and v through the tensor maps tq, tk, tv; f32 through
-// the pointers.)
-template <typename T, int D>
-__global__ void __launch_bounds__(FwdCfg<T, D>::NT)
+// The bf16 forward reads q, k and v through the tensor maps tq, tk, tv
+// (f32 takes flash_fwd_f32_kernel: wgmma has no f32 operands).
+template <int D>
+__global__ void __launch_bounds__(FwdCfg<D>::NT)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, const T* q,
-                 const T* k, const T* v, T* out, float* lse, int Hq, int Hkv,
-                 int Sq, int Skv, float scale, int causal) {
+                 const __grid_constant__ CUtensorMap tv, bf16* out,
+                 float* lse, int Hq, int Hkv, int Sq, int Skv, float scale,
+                 int causal) {
   extern __shared__ __align__(128) unsigned char fwd_smem[];
-  if constexpr (std::is_same<T, float>::value) {
-    fwd_simt<D>(q, k, v, out, lse, Hq, Hkv, Sq, Skv, scale, causal, fwd_smem);
-  } else {
-    fwd_wgmma<D>(&tq, &tk, &tv, out, lse, Hq, Hkv, Sq, Skv, scale, causal,
-                 fwd_smem);
-  }
+  fwd_wgmma<D>(&tq, &tk, &tv, out, lse, Hq, Hkv, Sq, Skv, scale, causal,
+               fwd_smem);
 }
 
 // ------------------------------------------------------------------ host
@@ -1463,6 +1503,17 @@ cudaError_t prepare(K kernel, size_t smem) {
                                 static_cast<int>(smem));
   }
   return cudaSuccess;
+}
+
+// The f32 kernels take all of an SM's shared memory as such, so that two
+// blocks fit where the budget allows it.
+template <typename K>
+cudaError_t prepare_f32(K kernel, size_t smem) {
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1519,43 +1570,43 @@ cudaError_t tensor_map(CUtensorMap* map, const void* base, int heads,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename T, int D>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
-                void* lse, Shape s, float scale, int causal,
-                cudaStream_t st) {
-  using C = FwdCfg<T, D>;
-  cudaError_t err = prepare(flash_fwd_kernel<T, D>, C::smem);
+template <int D>
+cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* out,
+                     void* lse, Shape s, float scale, int causal,
+                     cudaStream_t st) {
+  using C = FwdCfg<D>;
+  cudaError_t err = prepare(flash_fwd_kernel<D>, C::smem);
   if (err != cudaSuccess) return err;
-  const int nq = (s.Sq + C::BQ - 1) / C::BQ;
   CUtensorMap tq{}, tk{}, tv{};
-  if constexpr (std::is_same<T, bf16>::value) {
-    if ((err = tensor_map<D>(&tq, q, s.B * s.Hq, s.Sq, C::BQ)) != cudaSuccess
-        || (err = tensor_map<D>(&tk, k, s.B * s.Hkv, s.Skv, C::BKV))
-               != cudaSuccess
-        || (err = tensor_map<D>(&tv, v, s.B * s.Hkv, s.Skv, C::BKV))
-               != cudaSuccess) {
-      return err;
-    }
+  if ((err = tensor_map<D>(&tq, q, s.B * s.Hq, s.Sq, C::BQ)) != cudaSuccess
+      || (err = tensor_map<D>(&tk, k, s.B * s.Hkv, s.Skv, C::BKV))
+             != cudaSuccess
+      || (err = tensor_map<D>(&tv, v, s.B * s.Hkv, s.Skv, C::BKV))
+             != cudaSuccess) {
+    return err;
   }
-  // bf16: q tiles slowest, so every head's heaviest causal tiles go first
-  const dim3 grid = std::is_same<T, float>::value ? dim3(nq, s.B * s.Hq)
-                                                  : dim3(s.B * s.Hq, nq);
-  flash_fwd_kernel<T, D><<<grid, C::NT, C::smem, st>>>(
-      tq, tk, tv, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), s.Hq, s.Hkv, s.Sq, s.Skv, scale, causal);
+  // q tiles slowest, so every head's heaviest causal tiles go first
+  const dim3 grid(s.B * s.Hq, (s.Sq + C::BQ - 1) / C::BQ);
+  flash_fwd_kernel<D><<<grid, C::NT, C::smem, st>>>(
+      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), s.Hq,
+      s.Hkv, s.Sq, s.Skv, scale, causal);
   return cudaGetLastError();
 }
 
-// The f32 kernels take all of an SM's shared memory as such, so that two
-// blocks fit where the budget allows it.
-template <typename K>
-cudaError_t prepare_f32(K kernel, size_t smem) {
-  const cudaError_t err = prepare(kernel, smem);
+template <int D>
+cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* out,
+                    void* lse, Shape s, float scale, int causal,
+                    cudaStream_t st) {
+  using C = F32Cfg<D>;
+  cudaError_t err = prepare_f32(flash_fwd_f32_kernel<D>, C::fwd_smem);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
+  // q tiles in y, so that every head's heaviest causal tile goes first
+  const dim3 grid(s.B * s.Hq, (s.Sq + C::T - 1) / C::T);
+  flash_fwd_f32_kernel<D><<<grid, C::NT, C::fwd_smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), s.Hq, s.Hkv, s.Sq, s.Skv, scale, causal);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -1563,7 +1614,7 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, Shape s, float scale, int causal,
                    cudaStream_t st) {
-  using C = F32Bwd<D>;
+  using C = F32Cfg<D>;
   cudaError_t err = prepare_f32(flash_bwd_dq_kernel<D>, C::dq_smem);
   if (err != cudaSuccess) return err;
   // q tiles in y, so that every head's heaviest causal tile goes first
@@ -1581,7 +1632,7 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, Shape s, float scale, int causal,
                     cudaStream_t st) {
-  using C = F32Bwd<D>;
+  using C = F32Cfg<D>;
   cudaError_t err = prepare_f32(flash_bwd_dkv_kernel<D>, C::dkv_smem);
   if (err != cudaSuccess) return err;
   // kv tiles in y: the heaviest causal tiles (the first) go first
@@ -1614,30 +1665,6 @@ cudaError_t bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// Calls FN<T, D>(args...) for the runtime dtype code and head dim.
-#define FLASH_DISPATCH(FN, ...)                                              \
-  do {                                                                       \
-    if (dtype == 0) {                                                        \
-      switch (D) {                                                           \
-        case 16: return FN<float, 16>(__VA_ARGS__);                          \
-        case 32: return FN<float, 32>(__VA_ARGS__);                          \
-        case 64: return FN<float, 64>(__VA_ARGS__);                          \
-        case 128: return FN<float, 128>(__VA_ARGS__);                        \
-        default: return cudaErrorInvalidValue;                               \
-      }                                                                      \
-    }                                                                        \
-    if (dtype == 1) {                                                        \
-      switch (D) {                                                           \
-        case 16: return FN<bf16, 16>(__VA_ARGS__);                           \
-        case 32: return FN<bf16, 32>(__VA_ARGS__);                           \
-        case 64: return FN<bf16, 64>(__VA_ARGS__);                           \
-        case 128: return FN<bf16, 128>(__VA_ARGS__);                         \
-        default: return cudaErrorInvalidValue;                               \
-      }                                                                      \
-    }                                                                        \
-    return cudaErrorInvalidValue;                                            \
-  } while (0)
-
 // Calls FN<D>(args...) for the runtime head dim.
 #define HEAD_DIM_DISPATCH(FN, ...)                                           \
   do {                                                                       \
@@ -1662,7 +1689,13 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   const Shape s{B, Hq, Hkv, Sq, Skv};
   if (!valid(s)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(fwd, q, k, v, out, lse, s, scale, causal, st);
+  if (dtype == 0) {
+    HEAD_DIM_DISPATCH(fwd_f32, q, k, v, out, lse, s, scale, causal, st);
+  }
+  if (dtype == 1) {
+    HEAD_DIM_DISPATCH(fwd_bf16, q, k, v, out, lse, s, scale, causal, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,

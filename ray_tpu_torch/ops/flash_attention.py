@@ -10,8 +10,9 @@ Layout contract, as the TPU kernels': q and dout (B, Hq, Sq, D), k and v
 
 On CUDA tensors :func:`flash_attention_fwd` and :func:`flash_attention_bwd`
 launch the hand-written kernels of ``ray_tpu_torch/csrc/flash_attention.cu``
-(``flash_fwd_kernel``; the backward ``flash_bwd_kernel`` in bfloat16,
-``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` in float32) and raise
+(in bfloat16 the forward ``flash_fwd_kernel`` and the backward
+``flash_bwd_kernel``; in float32 ``flash_fwd_f32_kernel``,
+``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``) and raise
 on operands those kernels do not take; on CPU tensors they compute the
 plain versions :func:`flash_attention_fwd_reference` (a copy of
 ``_fwd_xla``, ``ray_tpu/ops/attention.py:49``) and
@@ -254,7 +255,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool, scale: float):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, Hq, k.shape[1], Sq, k.shape[2], D, float(scale),
         int(causal), dtype, _stream(q))
-    _raise_on_error(rc, "flash_fwd_kernel")
+    _raise_on_error(rc, "flash_fwd_f32_kernel" if dtype == 0
+                    else "flash_fwd_kernel")
     flash_attention_fwd.launches += 1
     return out, lse
 

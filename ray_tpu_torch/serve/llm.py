@@ -120,6 +120,7 @@ class LLMEngine:
                  kv_block_size: int = 64,
                  prefill_chunk: Optional[int] = None,
                  speculation=None,
+                 spec_k: int = 4,
                  device=None):
         from ray_tpu_torch.models import llama
 
@@ -135,14 +136,31 @@ class LLMEngine:
             raise _not_ported("prefill_chunk", "prefill_chunk")
         if speculation is not None:
             raise _not_ported("speculation", "speculation")
+        # the reference's order: resolve the mode, refuse what no engine
+        # takes, then what the port does not take yet
         mode = prefix_cache
         if mode is None:
             mode = os.environ.get("RT_prefix_cache")
         if mode is None:
-            mode = ("on" if prefix_cache_size > 0
-                    or (prefix_cache_bytes or 0) > 0 else "off")
+            if prefix_cache_size > 0 or (prefix_cache_bytes or 0) > 0:
+                mode = "radix" if kv_cache == "paged" else "legacy"
+            else:
+                mode = "off"
+        if mode not in ("radix", "legacy", "off"):
+            raise ValueError(
+                f"prefix_cache={mode!r}: 'radix', 'legacy' or 'off'")
+        if mode == "radix" and kv_cache != "paged":
+            raise ValueError("prefix_cache='radix' requires "
+                             "kv_cache='paged' (it shares pool blocks)")
         if mode != "off":
-            raise _not_ported(f"prefix_cache={mode!r}", "prefix_cache")
+            # the legacy mode re-injects cached KV: it rests on item 3
+            raise _not_ported(f"prefix_cache={mode!r}",
+                              "prefix_cache" if mode == "radix"
+                              else "submit_prefilled")
+        self.prefill_chunk = prefill_chunk
+        self.speculation = speculation
+        self.spec_k = spec_k
+        self._prefix_cache_bytes = prefix_cache_bytes or 0
 
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -297,7 +315,20 @@ class LLMEngine:
                "queued": self._queue.qsize() + len(self._waiting),
                "kv_cache": self.kv_cache,
                "device": str(self.device),
-               "fair_share_skips": self._fair_share_skips}
+               "fair_share_skips": self._fair_share_skips,
+               # the reference's keys for features that are off here
+               "prefix_hits": 0,
+               "prefix_misses": 0,
+               "prefill_chunks_run": 0,
+               "prefilling_slots": 0,
+               "spec_proposed": 0,
+               "spec_accepted": 0,
+               "spec_acceptance_rate": None,
+               "speculation": self.speculation,
+               "prefix_cache": {"mode": "off",
+                                "match_faults": 0, "insert_faults": 0,
+                                "budget_bytes": self._prefix_cache_bytes,
+                                "entries": 0, "cached_bytes": 0}}
         if self.kv_cache == "paged":
             out.update(
                 preemptions=self._preemptions,
@@ -305,6 +336,11 @@ class LLMEngine:
                 kv_blocks_total=self._page.num_blocks - 1,
                 kv_block_size=self._page.block_size)
         return out
+
+    def prefix_digest(self) -> List[int]:
+        """Cached prefixes for prefix-aware routing: none, as the
+        reference's engine with its prefix cache off."""
+        return []
 
     def shutdown(self):
         self._stop.set()
@@ -578,6 +614,9 @@ class LLMServer:
 
     def cancel(self, request_id: str) -> bool:
         return self.engine.cancel(request_id)
+
+    def prefix_digest(self) -> List[int]:
+        return self.engine.prefix_digest()
 
     def stream(self, prompt, **kwargs):
         raise _not_ported("LLMServer.stream", "serve")

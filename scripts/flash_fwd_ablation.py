@@ -144,7 +144,7 @@ def main() -> int:
             report["ptxas"][name] = {
                 chip_smoke.kernel_label(k): v
                 for k, v in _build.kernel_resources(out).items()
-                if "flash_fwd_kernelI13__nv_bfloat16" in k}
+                if "flash_fwd_kernelI" in k}
             fn = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so")) \
                 .flash_fwd_launch
             fn.restype = ctypes.c_int

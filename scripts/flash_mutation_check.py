@@ -6,16 +6,17 @@
 Copies ``ray_tpu_torch`` into a temporary directory once unchanged and
 once per mutant in ``MUTANTS``, each planting one fault in
 ``csrc/flash_attention.cu`` (the bf16 path training runs, K1 and the one
-backward kernel ``flash_bwd_kernel``, or the f32 backward K2a/K2b that
-f32 training runs) or in the decode kernels of ``csrc/decode_attention.cu``
-(K3 and K4, the paths serving runs), builds every copy with nvcc (all
-started together), and runs each copy, one process at a time, through four
-checks of chip_smoke.py:
+backward kernel ``flash_bwd_kernel``, or the f32 kernels that f32
+training runs, ``flash_fwd_f32_kernel`` and the backward K2a/K2b) or in
+the decode kernels of ``csrc/decode_attention.cu`` (K3 and K4, the paths
+serving runs), builds every copy with nvcc (all started together), and
+runs each copy, one process at a time, through four checks of
+chip_smoke.py:
 
 - ``kernels``: ``flash_compare`` in bf16, K1 and the backward against their
   plain versions at the 1b_bench shapes (B=8, Hq=32, Hkv=8, S=2048, D=64,
   causal), the inputs of phase 6;
-- ``kernels_f32``: the same in f32 (K1's f32 instantiation, K2a, K2b);
+- ``kernels_f32``: the same in f32 (``flash_fwd_f32_kernel``, K2a, K2b);
 - ``grads``: ``flash_grad_check``, the training path's attention gradients
   against autograd through the plain forward;
 - ``decode``: ``kernel_checks``, phase 3, K3 and K4 against their plain
@@ -71,6 +72,12 @@ MUTANTS = {  # name: (source, [(its text, the replacement), ...])
         "    if (lane < 16 && q0 + row < Sq) {",
         "    if (lane < 16 && q0 + row < Sq\n"
         "        && !(k0 == 0 && it == n_iter - 1 && tid == 0)) {")]),
+    # the f32 forward leaves row 3 of every thread's micro-tile out of the
+    # rescale of O when the running max grows
+    "f32_fwd_skips_rescale_in_one_micro_tile_row": (FLASH, [(
+        "      for (int n = 0; n < D / 16; ++n) acc[i][n] *= alpha;",
+        "      for (int n = 0; n < D / 16; ++n)\n"
+        "        acc[i][n] *= i == 3 ? 1.f : alpha;")]),
     # f32 K2a leaves column 3 of every thread's micro-tile out of dS
     "f32_dq_skips_one_micro_tile_column": (FLASH, [(
         "        sdS[(ty + 16 * i) * LDS + tx + 16 * j] = p * (dp[i][j] - dl[i]);",

@@ -13,9 +13,10 @@ under ``torch.profiler``. Prints one JSON object with, per step:
   device's kernels and copies (one stream, so they do not overlap);
   ``idle_share`` = 1 - busy / step;
 - ``by_kind``: device time and launches by kind of kernel: the flash
-  kernels (K1 ``flash_fwd``; the bf16 backward ``flash_bwd``; the f32
-  backward's K2a ``flash_dq`` and K2b ``flash_dkv``), cuBLAS products,
-  elementwise, reductions, softmax, copies, other;
+  kernels (K1 ``flash_fwd``, bf16 or f32; the bf16 backward
+  ``flash_bwd``; the f32 backward's K2a ``flash_dq`` and K2b
+  ``flash_dkv``), cuBLAS products, elementwise, reductions, softmax,
+  copies, other;
 - ``by_phase``: device time between CUDA events recorded where each
   phase starts: the layers' forward, the head's and the loss's forward,
   their backward, the layers' backward (remat recompute included) and the
@@ -43,7 +44,7 @@ PHASES = [  # (name, event that starts it, event that ends it)
     ("optimizer", "opt_start", "opt_end"),
 ]
 KINDS = [  # (kind, substrings of the kernel name), first match wins
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_f32_kernel")),
     ("flash_bwd", ("flash_bwd_kernel",)),
     ("flash_dq", ("flash_bwd_dq_kernel",)),
     ("flash_dkv", ("flash_bwd_dkv_kernel",)),

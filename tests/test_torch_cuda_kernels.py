@@ -338,6 +338,57 @@ def test_flash_fwd_bf16_matches_plain(cuda_device, D, causal, group):
     _close(lse, want_lse)
 
 
+def _fwd_matches_plain(device, dtype, D, causal, group, Sq, Skv):
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, _ = _flash_inputs(device, dtype, 1, 2 * group, 2, Sq, Skv, D)
+    kw = dict(causal=causal, scale=D ** -0.5)
+    n = tfa.flash_attention_fwd.launches
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == n + 1
+    want_out, want_lse = tfa.flash_attention_fwd_reference(q, k, v, **kw)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _close(out, want_out)
+    _close(lse, want_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_fwd_f32_matches_plain(cuda_device, D, causal, group):
+    """The f32 forward (flash_fwd_f32_kernel: 64 x 64 tiles) at every head
+    dim, with q and kv lengths that are no multiple of a tile (Sq != Skv
+    without the causal mask)."""
+    Sq, Skv = (200, 200) if causal else (150, 263)
+    _fwd_matches_plain(cuda_device, torch.float32, D, causal, group, Sq, Skv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv", [(150, 263), (263, 150)])
+def test_flash_fwd_f32_causal_uneven_lengths(cuda_device, Sq, Skv):
+    """Top-left causal with Sq != Skv: rows past Skv see every kv row, and
+    the kv tiles past Sq are never read."""
+    _fwd_matches_plain(cuda_device, torch.float32, 64, True, 4, Sq, Skv)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_f32_deterministic(cuda_device):
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, _ = _flash_inputs(cuda_device, torch.float32, 2, 8, 2, 300,
+                               300, 64)
+    kw = dict(causal=True, scale=64 ** -0.5)
+    first = tfa.flash_attention_fwd(q, k, v, **kw)
+    second = tfa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    want = tfa.flash_attention_fwd_reference(q, k, v, **kw)
+    for a, w in zip(first, want):
+        _close(a, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [1, 4, 8])
 @pytest.mark.parametrize("causal", [True, False])

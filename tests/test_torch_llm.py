@@ -2,8 +2,10 @@
 same converted ``debug`` weights: greedy outputs must be token-identical
 in both cache modes, with mid-stream admission (6 requests on 3 slots)
 and under a pool small enough to force recompute preemption. Also the
-engine surface: unported options raise NotImplementedError, and the
-default device is the card."""
+engine surface: the reference's keywords, stats keys and prefix digest
+with every optional feature off, unported options raise
+NotImplementedError, bad prefix modes ValueError as in the reference, and
+the default device is the card."""
 
 import threading
 import time
@@ -138,11 +140,66 @@ def test_oversize_prompt_fails_cleanly(tparams):
 @pytest.mark.parametrize("kw,what", [
     ({"prefix_cache": "radix"}, "prefix_cache"),
     ({"prefix_cache_size": 4}, "prefix_cache"),
+    ({"prefix_cache": "legacy"}, "prefix_cache"),
+    ({"prefix_cache_size": 4, "kv_cache": "slot"}, "prefix_cache"),
     ({"prefill_chunk": 32}, "prefill_chunk"),
     ({"speculation": "ngram", "kv_cache": "slot"}, "speculation")])
 def test_unported_options_raise(kw, what):
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
         LLMEngine(model="debug", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kv_cache", ["paged", "slot"])
+def test_engine_surface_matches_jax(jparams, tparams, kv_cache):
+    """With every optional feature off, the port's engine and server have
+    the reference's surface: the same constructor keywords (the port adds
+    ``device``), the same ``stats()`` keys (the port adds ``device``), the
+    off values of the features it lacks, and an empty prefix digest."""
+    import inspect
+
+    from ray_tpu.serve.llm import LLMServer as JaxServer
+
+    def keywords(cls):
+        return set(inspect.signature(cls.__init__).parameters) - {"self"}
+
+    assert keywords(LLMEngine) - {"device"} == keywords(JaxEngine)
+    kw = dict(model="debug", num_slots=2, max_seq=128, kv_cache=kv_cache,
+              kv_block_size=16)
+    servers = (JaxServer(params=jparams, **kw),
+               LLMServer(params=tparams, device="cpu", **kw))
+    try:
+        (jst, jdig), (st, dig) = [
+            (s.stats(), (s.prefix_digest(), s.engine.prefix_digest()))
+            for s in servers]
+        assert set(st) - {"device"} == set(jst)
+        assert dig == jdig == ([], [])
+        for key in ("prefix_cache", "speculation", "spec_proposed",
+                    "spec_accepted", "spec_acceptance_rate", "prefix_hits",
+                    "prefix_misses", "prefill_chunks_run",
+                    "prefilling_slots"):
+            assert st[key] == jst[key], key
+        eng = servers[1].engine
+        assert (eng.speculation, eng.spec_k, eng.prefill_chunk) == (
+            None, 4, None)
+    finally:
+        for s in servers:
+            s.engine.shutdown()
+    eng = LLMEngine(params=tparams, device="cpu", spec_k=7, **kw)
+    try:
+        assert eng.spec_k == 7
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("kw", [{"prefix_cache": "lru"},
+                                {"prefix_cache": "radix", "kv_cache": "slot"}])
+@pytest.mark.parametrize("engine", ["jax", "torch"])
+def test_bad_prefix_modes_raise_value_error(engine, kw):
+    with pytest.raises(ValueError, match="prefix_cache="):
+        if engine == "jax":
+            JaxEngine(model="debug", **kw)
+        else:
+            LLMEngine(model="debug", device="cpu", **kw)
 
 
 def test_default_device_is_the_card():
