@@ -21,11 +21,23 @@ Phases (any failure exits non-zero, and no result line is printed):
      from a CUDA graph of 20 calls, since the wrapper's host time exceeds
      the kernel's), and the least time the card could take (bytes over
      3.35 TB/s, or operations over the peak rate);
-  4. debug engine on the card (f32, paged with preemption and slot) gives
-     the same greedy tokens as the same engine on the CPU;
+  4. debug engine on the card (f32: paged with preemption, slot, paged
+     with chunked prefill and the radix prefix cache, slot with chunked
+     prefill, and a PD handoff from a paged engine into a paged and a slot
+     engine) gives the same greedy tokens as the same engine on the CPU;
   5. the 8b configuration served on the card through LLMEngine, paged then
      slot, from random weights: every output complete, logits finite, and
      each kernel launched once per layer per decode step;
+  5b. at 8b on the same weights: (a) the chunked prefills (chunks of 256,
+     a 1500-token prompt, from 0 and resuming mid-block) against the whole
+     prompt's prefill, logits and every written K/V row; (b) phase 5's
+     requests with prefill_chunk=256, paged and slot: chunk count, launch
+     counts, and where the tokens leave phase 5's (reported); (c) the
+     radix prefix cache: eight requests sharing a 1024-token system
+     prompt, one diverging inside a block: hits, copy-on-write, allocator
+     invariants, TTFT of hits and of the cold request; (d) PD: a paged
+     engine's extracted KV submitted to a fresh paged and a fresh slot
+     engine gives the source's tokens; extract and inject ms;
   6. flash attention: the forward (K1; bf16: flash_fwd_kernel, f32:
      flash_fwd_f32_kernel) and the backward (bf16: the one kernel
      flash_bwd_kernel; f32: K2a dq and K2b dk/dv) against their
@@ -314,9 +326,61 @@ def _run_requests(eng, prompts, max_tokens, timeout_s=600):
     return outs, ttft, time.perf_counter() - t0
 
 
-def debug_engine_check(device, kv_cache, seed=0):
+def _generate_each(eng, prompts, max_tokens):
+    """The prompts one after another, each to completion: outputs."""
+    return {i: eng.generate(p, max_tokens=max_tokens, timeout_s=600)
+            for i, p in enumerate(prompts)}
+
+
+def _prefilled(eng, prompt, ent, max_tokens):
+    """``submit_prefilled`` of a legacy cache entry, polled to the end."""
+    rid = eng.submit_prefilled(prompt, ent["k"], ent["v"], ent["logits"],
+                               max_tokens=max_tokens)
+    out, deadline = [], time.monotonic() + 600
+    while True:
+        st = eng.poll(rid)
+        out += st["chunks"]
+        if st["done"]:
+            return out
+        if time.monotonic() > deadline:
+            raise TimeoutError("prefilled request timed out")
+        time.sleep(0.005)
+
+
+def _debug_prompts(seed=0):
+    """Phase 4's prompts: six short ones (the paged case's pool of 96
+    tokens preempts), four longer than a chunk of 32 beside a short one,
+    and a 40-token system prompt with five tails, the fourth diverging
+    inside a block of 16 of the second's."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def toks(n):
+        return rng.integers(1, 256, n).tolist()
+
+    system, tail = toks(40), toks(30)
+    return {"short": [[2 + i, 9, 4] for i in range(6)],
+            "long": [toks(n) for n in (70, 5, 100, 40, 33)],
+            "shared": [system + t for t in (toks(12), tail, toks(3),
+                                            tail[:9] + toks(20), toks(25))]}
+
+
+DEBUG_CASES = {  # name: engine keywords, prompts, max_tokens, sequential
+    "paged": (dict(kv_cache="paged", kv_pool_tokens=96), "short", 40,
+              False),
+    "slot": (dict(kv_cache="slot"), "short", 40, False),
+    "paged_chunk_radix": (dict(kv_cache="paged", prefill_chunk=32,
+                               prefix_cache="radix"), "shared", 12, True),
+    "slot_chunk": (dict(kv_cache="slot", prefill_chunk=32), "long", 12,
+                   False),
+}
+
+
+def debug_engine_check(device, case, seed=0):
     """The f32 debug engine on ``device`` and on the CPU, same weights:
-    greedy tokens must be identical."""
+    greedy tokens must be identical (and, for the sequential radix case,
+    the prefix cache's counters)."""
     import torch
 
     from ray_tpu_torch.models import llama
@@ -325,31 +389,94 @@ def debug_engine_check(device, kv_cache, seed=0):
     cfg = llama.CONFIGS["debug"]
     params = llama.init_params(cfg, torch.Generator().manual_seed(seed),
                                "cpu")
-    prompts = [[2 + i, 9, 4] for i in range(6)]
-    kw = dict(num_slots=3, max_seq=128, kv_cache=kv_cache, kv_block_size=16)
-    if kv_cache == "paged":
-        kw["kv_pool_tokens"] = 96          # forces recompute preemption
+    kw, which, max_tokens, sequential = DEBUG_CASES[case]
+    prompts = _debug_prompts(seed)[which]
     res = {}
     for dev in (device, "cpu"):
-        eng = LLMEngine(cfg, params, device=dev, **kw)
+        eng = LLMEngine(cfg, params, device=dev, num_slots=3, max_seq=128,
+                        kv_block_size=16, **kw)
         try:
-            res[dev] = _run_requests(eng, prompts, 40)[0], eng.stats()
+            res[dev] = (_generate_each(eng, prompts, max_tokens)
+                        if sequential else
+                        _run_requests(eng, prompts, max_tokens)[0],
+                        eng.stats())
+            if eng.kv_cache == "paged":
+                eng._alloc.check_invariants()
         finally:
             eng.shutdown()
-    (on_card, st), (on_cpu, _) = res[device], res["cpu"]
-    assert all(len(on_card[i]) == 40 for i in range(6))
-    assert on_card == on_cpu, "debug engine: card and CPU tokens differ"
-    if kv_cache == "paged":
+    (on_card, st), (on_cpu, cpu_st) = res[device], res["cpu"]
+    assert all(len(on_card[i]) == max_tokens for i in range(len(prompts)))
+    assert on_card == on_cpu, f"debug {case}: card and CPU tokens differ"
+    out = {"requests": len(prompts), "identical": True}
+    if case == "paged":
         assert st["preemptions"] >= 1, st
-    return {"requests": 6, "identical": True,
-            "preemptions": st.get("preemptions")}
+        out["preemptions"] = st["preemptions"]
+    if "prefill_chunk" in kw:
+        want = sum(-(-len(p) // 32) for p in prompts if len(p) > 32)
+        if "prefix_cache" not in kw:
+            assert st["prefill_chunks_run"] == want, (st, want)
+        assert st["prefilling_slots"] == 0, st
+        out["prefill_chunks_run"] = st["prefill_chunks_run"]
+    if "prefix_cache" in kw:
+        pc = st["prefix_cache"]
+        assert pc == cpu_st["prefix_cache"], (pc, cpu_st["prefix_cache"])
+        assert pc["hits"] == len(prompts) - 1 and pc["cow_hits"] >= 1, pc
+        out["prefix_cache"] = pc
+    return out
+
+
+def debug_pd_check(device, seed=0):
+    """PD on the debug engine: a paged engine's prompt KV (extracted into
+    its legacy cache) submitted to a fresh paged and a fresh slot engine,
+    on ``device`` and on the CPU: every run gives the source's tokens."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = llama.CONFIGS["debug"]
+    params = llama.init_params(cfg, torch.Generator().manual_seed(seed),
+                               "cpu")
+    prompt = _debug_prompts(seed)["long"][2]
+    kw = dict(num_slots=2, max_seq=128, kv_block_size=16)
+    outs = {}
+    for dev in (device, "cpu"):
+        src = LLMEngine(cfg, params, device=dev, prefix_cache="legacy", **kw)
+        try:
+            outs[(dev, "source")] = src.generate(prompt, max_tokens=12)
+            ent = src._prefix_cache[tuple(prompt)]
+        finally:
+            src.shutdown()
+        for kv in ("paged", "slot"):
+            eng = LLMEngine(cfg, params, device=dev, kv_cache=kv, **kw)
+            try:
+                outs[(dev, kv)] = _prefilled(eng, prompt, ent, 12)
+            finally:
+                eng.shutdown()
+    want = outs[(device, "source")]
+    assert len(want) == 12
+    assert all(o == want for o in outs.values()), outs
+    return {"prompt_tokens": len(prompt), "identical": True,
+            "kv_dtype": str(ent["k"].dtype)}
+
+
+def assert_decode_launches(res, kv_cache, cfg):
+    """The cache mode's decode kernel launched once per layer per decode
+    step, the other kernel never."""
+    want = res["decode_steps"] * cfg.n_layers
+    mine, other = (("paged_decode_attention", "decode_attention")
+                   if kv_cache == "paged" else
+                   ("decode_attention", "paged_decode_attention"))
+    assert res["launches"][mine] == want, (res["launches"], want)
+    assert res["launches"][other] == 0, res["launches"]
 
 
 def serve_check(params, cfg, kv_cache, prompts, max_tokens, num_slots=4,
-                max_seq=2048, device=None):
+                max_seq=2048, device=None, **engine_kw):
     """Serve ``prompts`` through LLMEngine on the card with each kernel's
     launch count read around the run; checks every output's length and
-    that every logits tensor was finite."""
+    that every logits tensor (prefill, prefill chunk, decode) was
+    finite."""
     import torch
 
     from ray_tpu_torch.ops.decode_attention import decode_attention
@@ -358,8 +485,9 @@ def serve_check(params, cfg, kv_cache, prompts, max_tokens, num_slots=4,
     from ray_tpu_torch.serve.llm import LLMEngine
 
     eng = LLMEngine(cfg, params, num_slots=num_slots, max_seq=max_seq,
-                    kv_cache=kv_cache, kv_block_size=64, device=device)
-    finite, decode_s, prefill_s = [], [], []
+                    kv_cache=kv_cache, kv_block_size=64, device=device,
+                    **engine_kw)
+    finite, decode_s, prefill_s, chunk_s = [], [], [], []
 
     def watch(fn, times):
         def call(*args):
@@ -373,6 +501,8 @@ def serve_check(params, cfg, kv_cache, prompts, max_tokens, num_slots=4,
 
     eng._decode = watch(eng._decode, decode_s)
     eng._prefill = watch(eng._prefill, prefill_s)
+    if eng._chunk_prefill is not None:
+        eng._chunk_prefill = watch(eng._chunk_prefill, chunk_s)
     try:
         paged_decode_attention.launches = 0
         decode_attention.launches = 0
@@ -396,10 +526,225 @@ def serve_check(params, cfg, kv_cache, prompts, max_tokens, num_slots=4,
             "ttft_max_ms": 1e3 * ttfts[-1],
             "decode_steps": st["steps"],
             "decode_step_ms_mean": 1e3 * sum(decode_s) / len(decode_s),
-            "prefill_ms_mean": 1e3 * sum(prefill_s) / len(prefill_s),
+            "prefill_ms_mean": (1e3 * sum(prefill_s) / len(prefill_s)
+                                if prefill_s else None),
+            "prefill_chunks_run": st["prefill_chunks_run"],
+            "chunk_ms_mean": (1e3 * sum(chunk_s) / len(chunk_s)
+                              if chunk_s else None),
             "preemptions": st.get("preemptions"),
             "launches": launches, "outputs": [outs[i]
                                               for i in range(len(prompts))]}
+
+
+# ------------------------------------------------------------- phase 5b
+
+KV_ROW_RTOL = 2e-2       # bf16 rows: ||got_r - want_r|| <= 2e-2 ||want_r||
+
+
+def row_excess(got, want):
+    """The largest error of a row (the last dimension) over its allowance,
+    KV_ROW_RTOL of the row's norm plus 1e-3 of the rows' rms (a row of
+    zeros, a padding row, must stay zero)."""
+    g, w = got.double(), want.double()
+    err = (g - w).norm(dim=-1)
+    norm = w.norm(dim=-1)
+    rms = norm.square().mean().sqrt()
+    return (err / (KV_ROW_RTOL * norm + 1e-3 * rms).clamp(min=1e-30)).max() \
+        .item()
+
+
+def chunk_layer_check(params, cfg, plen=1500, C=256, seed=1):
+    """At full width and depth: the chunked prefills of a ``plen``-token
+    prompt in chunks of ``C`` (from 0, then again resuming mid-block
+    after a first chunk of 100 tokens) against the whole-prompt prefill
+    on the same prompt, paged and slot: the last position's logits and
+    every written K/V row (per layer, position and kv head) within
+    KV_ROW_RTOL of the row's norm. Returns the worst excess of each and
+    the ms of each chunk (host clock, synchronized)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import decoding, llama
+    from ray_tpu_torch.models import paged_cache as pc
+
+    device = params["embed"].device
+    head = llama.head_f32(params, cfg)
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, plen).tolist()
+    page = pc.PagedConfig(num_blocks=1 + 2048 // 64, block_size=64,
+                          max_seq=2048)
+    al = pc.BlockAllocator(page, 1, device=device)
+    assert al.ensure(0, plen + 1)
+    table = al.tables[0]
+    P = pc.pad_to_block_bucket(plen, 64)
+    tokens = np.zeros((1, P), np.int32)
+    tokens[0, :plen] = prompt
+    modes = {
+        "paged": (lambda: pc.init_paged_cache(cfg, page, 1, device=device),
+                  lambda c, *a: pc.make_paged_prefill(
+                      params, cfg, page, head=head)(c, table, *a),
+                  pc.make_chunked_paged_prefill(params, cfg, page, head=head),
+                  (table,)),
+        "slot": (lambda: decoding.init_cache(cfg, 1, 2048, device=device),
+                 decoding.make_prefill(params, cfg, head=head),
+                 decoding.make_chunked_prefill(params, cfg, head=head), ()),
+    }
+    out = {}
+    for mode, (fresh, whole_fn, chunk_fn, lead) in modes.items():
+        whole, want = whole_fn(fresh(), tokens, plen, 0)
+
+        def rows(cache):
+            if mode == "paged":
+                ids = torch.as_tensor(table[:-(-plen // 64)], device=device)
+                return [cache[n][:, ids.long()].flatten(1, 2)[:, :plen]
+                        for n in ("k", "v")]
+            return [cache[n][:, 0, :plen] for n in ("k", "v")]
+
+        want_rows = rows(whole)
+        del whole
+        for start_first in (C, 100):
+            cache, ms, pos, n = fresh(), [], 0, start_first
+            while pos < plen:
+                n = min(n, plen - pos)
+                buf = np.zeros((1, C), np.int32)
+                buf[0, :n] = prompt[pos:pos + n]
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                cache, got = chunk_fn(cache, *lead, buf, n, pos, 0)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t))
+                pos, n = pos + n, C
+            assert int(cache["length"][0]) == plen
+            rec = {"chunks": len(ms), "chunk_ms": ms,
+                   "logits_excess": row_excess(got, want),
+                   "logits_max_abs_err": (got - want).abs().max().item(),
+                   "logits_finite": bool(torch.isfinite(got).all())}
+            for name, g, w in zip(("k", "v"), rows(cache), want_rows):
+                rec[f"{name}_excess"] = row_excess(g, w)
+            out[f"{mode}_first{start_first}"] = rec
+            del cache
+        del want_rows
+        torch.cuda.empty_cache()
+    for key, rec in out.items():
+        assert rec["logits_finite"], key
+        bad = {k: v for k, v in rec.items()
+               if k.endswith("_excess") and not v <= 1.0}
+        assert not bad, f"chunked prefill {key}: outside tolerance: {bad}"
+    return out
+
+
+def first_divergence(a, b):
+    """First position where two token lists differ (None if equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def radix_check(params, cfg, system_len=1024, n=8, max_tokens=32, seed=2,
+                device=None):
+    """Radix prefix cache at full width and depth, paged: ``n`` requests
+    share a ``system_len``-token system prompt, with distinct suffixes of
+    64–300 tokens; the sixth diverges inside a block of the second's
+    suffix. One request at a time: the first prefills cold, every later
+    one hits and prefills only its suffix. Checks the hits, the hit tokens
+    and a copy-on-write hit, the allocator's invariants, and that dropping
+    the tree frees the whole pool; returns the TTFT of the cold request
+    and of the hits."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab_size, system_len).tolist()
+    suffixes = [rng.integers(0, cfg.vocab_size, int(k)).tolist()
+                for k in rng.integers(64, 301, n)]
+    suffixes[5] = suffixes[1][:30] + suffixes[5][30:]
+    prompts = [system + s_ for s_ in suffixes]
+    eng = LLMEngine(cfg, params, num_slots=4, max_seq=2048,
+                    kv_cache="paged", kv_block_size=64,
+                    prefix_cache="radix", device=device)
+    ttft, outs = [], []
+    try:
+        for p in prompts:
+            got, t = _run_requests(eng, [p], max_tokens)[:2]
+            outs.append(got[0])
+            ttft.append(1e3 * t[0])
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    try:
+        assert all(len(o) == max_tokens for o in outs)
+        pc = st["prefix_cache"]
+        assert pc["hits"] >= n - 1, pc
+        assert pc["hit_tokens"] >= (n - 1) * system_len, pc
+        assert pc["cow_hits"] >= 1, pc
+        eng._alloc.check_invariants()
+        eng._radix.clear()
+        eng._alloc.check_invariants()
+        assert eng._alloc.free_blocks() == eng._page.num_blocks - 1
+    finally:
+        del eng
+        torch.cuda.empty_cache()
+    hits = sorted(ttft[1:])
+    return {"prompt_tokens": [len(p) for p in prompts],
+            "prefix_cache": pc, "prefill_chunks_run": st["prefill_chunks_run"],
+            "ttft_cold_ms": ttft[0], "ttft_hit_ms": ttft[1:],
+            "ttft_hit_p50_ms": hits[len(hits) // 2]}
+
+
+def pd_check(params, cfg, prompt, max_tokens=32, device=None):
+    """PD at full width and depth: a paged engine's prompt KV, extracted
+    into its legacy cache, submitted to a fresh paged and a fresh slot
+    engine. Their greedy tokens equal the source's exactly (injection
+    copies the bf16 rows bit for bit, and K3 and K4 give the same bits).
+    Returns the extract and inject ms (host clock, synchronized)."""
+    import torch
+
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    def timed(fn, times):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+            return res
+        return call
+
+    kw = dict(num_slots=4, max_seq=2048, kv_block_size=64, device=device)
+    extract_ms, inject_ms, outs = [], {}, {}
+    # the legacy cache's 64 MiB default would drop this prompt's KV
+    src = LLMEngine(cfg, params, kv_cache="paged", prefix_cache="legacy",
+                    prefix_cache_bytes=1 << 30, **kw)
+    src._extract_kv = timed(src._extract_kv, extract_ms)
+    try:
+        want = src.generate(prompt, max_tokens=max_tokens, timeout_s=600)
+        ent = src._prefix_cache[tuple(prompt)]
+    finally:
+        src.shutdown()
+        del src
+        torch.cuda.empty_cache()
+    for kv in ("paged", "slot"):
+        eng = LLMEngine(cfg, params, kv_cache=kv, **kw)
+        inject_ms[kv] = []
+        eng._inject_kv = timed(eng._inject_kv, inject_ms[kv])
+        try:
+            outs[kv] = _prefilled(eng, prompt, ent, max_tokens)
+        finally:
+            eng.shutdown()
+            del eng
+            torch.cuda.empty_cache()
+    assert len(want) == max_tokens
+    for kv, got in outs.items():
+        assert got == want, (kv, first_divergence(got, want))
+    return {"prompt_tokens": len(prompt), "kv_dtype": str(ent["k"].dtype),
+            "kv_bytes": int(ent["k"].nbytes + ent["v"].nbytes),
+            "extract_ms": extract_ms[0],
+            "inject_ms": {k: v[0] for k, v in inject_ms.items()},
+            "identical": True}
 
 
 # ------------------------------------------------------------- phase 6
@@ -780,9 +1125,11 @@ def main() -> int:
 
     # 4. debug engine: card == CPU
     report["debug"] = {}
-    for kv in ("paged", "slot"):
-        report["debug"][kv] = debug_engine_check(device, kv)
-        log(f"[4] debug {kv}: " + json.dumps(report["debug"][kv]))
+    for case in DEBUG_CASES:
+        report["debug"][case] = debug_engine_check(device, case)
+        log(f"[4] debug {case}: " + json.dumps(report["debug"][case]))
+    report["debug"]["pd"] = debug_pd_check(device)
+    log("[4] debug pd: " + json.dumps(report["debug"]["pd"]))
 
     # 5. 8b served on the card, paged then slot, same weights
     cfg = llama.CONFIGS["8b"]
@@ -801,12 +1148,7 @@ def main() -> int:
     report["serve"] = {}
     for kv in ("paged", "slot"):
         res = serve_check(params, cfg, kv, prompts, max_tokens=32)
-        want = res["decode_steps"] * cfg.n_layers
-        mine, other = (("paged_decode_attention", "decode_attention")
-                       if kv == "paged" else
-                       ("decode_attention", "paged_decode_attention"))
-        assert res["launches"][mine] == want, (res["launches"], want)
-        assert res["launches"][other] == 0, res["launches"]
+        assert_decode_launches(res, kv, cfg)
         report["serve"][kv] = res
         log(f"[5] 8b {kv}: " + json.dumps(
             {k: v for k, v in res.items() if k != "outputs"}))
@@ -815,6 +1157,34 @@ def main() -> int:
     log(f"[5] 8b paged and slot outputs identical: {same}")
     report["serve_paged_equals_slot"] = same
     report["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # 5b. chunked prefill, the radix prefix cache and PD, same weights
+    t = time.perf_counter()
+    kvm = report["kv"] = {}
+    kvm["layer"] = chunk_layer_check(params, cfg)
+    log("[5b] 8b chunked prefill (chunks of 256) vs the whole prompt's "
+        f"prefill, rows within {KV_ROW_RTOL} of their norm: "
+        + json.dumps(kvm["layer"]))
+    want_chunks = sum(-(-n // 256) for n in plens if n > 256)
+    for kv in ("paged", "slot"):
+        res = serve_check(params, cfg, kv, prompts, max_tokens=32,
+                          prefill_chunk=256)
+        assert_decode_launches(res, kv, cfg)
+        assert res["prefill_chunks_run"] == want_chunks, (
+            res["prefill_chunks_run"], want_chunks)
+        # a report, not a gate: bf16 ties can flip a greedy token
+        res["first_divergence_from_unchunked"] = [
+            first_divergence(a, b) for a, b in
+            zip(res["outputs"], report["serve"][kv]["outputs"])]
+        kvm[f"chunked_{kv}"] = res
+        log(f"[5b] 8b {kv}, prefill_chunk=256: " + json.dumps(
+            {k: v for k, v in res.items() if k != "outputs"}))
+    kvm["radix"] = radix_check(params, cfg)
+    log("[5b] 8b radix prefix cache: " + json.dumps(kvm["radix"]))
+    kvm["pd"] = pd_check(params, cfg, prompts[1])
+    log("[5b] 8b PD handoff: " + json.dumps(kvm["pd"]))
+    report["kv_s"] = time.perf_counter() - t
+    log(f"[5b] phase time {report['kv_s']:.1f} s")
     del params
     torch.cuda.empty_cache()
 

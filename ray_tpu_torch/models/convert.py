@@ -13,13 +13,39 @@ import numpy as np
 import torch
 
 
-def _tensor(a) -> torch.Tensor:
-    a = np.array(a, order="C")     # a writable copy: torch shares it
+def _view(a: np.ndarray) -> torch.Tensor:
     # bfloat16 numpy arrays (ml_dtypes) have no torch.from_numpy route:
     # reinterpret the bits. Recognised by name, so ml_dtypes is not needed.
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def _tensor(a) -> torch.Tensor:
+    return _view(np.array(a, order="C"))   # a writable copy: torch shares it
+
+
+def tensor_from_host(a, device=None, dtype=None) -> torch.Tensor:
+    """A host array (numpy, bf16 from ml_dtypes included, or a tensor) as
+    a tensor of ``dtype`` on ``device``, for reading: the array is copied
+    on the host only when it is not C-contiguous and writable."""
+    if not isinstance(a, torch.Tensor):
+        a = np.asarray(a)
+        if not (a.flags.c_contiguous and a.flags.writeable):
+            a = np.array(a, order="C")
+        a = _view(a)
+    return a.to(device=device, dtype=dtype)
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor → a numpy copy of it on the host, in the JAX package's
+    dtypes: bf16 comes out as ``ml_dtypes.bfloat16`` (the same bits)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def params_from_jax(tree: Any, device=None) -> Any:

@@ -10,8 +10,9 @@ so XLA updates it in place), these steps **write in place into the
 preallocated cache tensors** and return the same dict. ``scan`` over the
 stacked layers is a Python loop over the layer index.
 
-Not ported yet: chunked prefill, batched speculative verify, KV ingest,
-inject and ``sample_token`` (see ROADMAP.md).
+Beside prefill and decode: the chunked prefill and KV injection (the PD
+handoff and the legacy prefix cache). Not ported yet: batched speculative
+verify, KV ingest and ``sample_token`` (ROADMAP.md, queue A item 4).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ray_tpu_torch.models.convert import tensor_from_host
 from ray_tpu_torch.models.llama import (LlamaConfig, Params, _attn_out, _mlp,
                                         _qkv, head_f32, layer_params)
 from ray_tpu_torch.ops.attention import mha_reference
@@ -155,6 +157,105 @@ def make_prefill(params: Params, config: LlamaConfig,
         return cache, logits
 
     return prefill
+
+
+def chunk_attention(q, ks, vs, allowed, scale):
+    """Attention of a prefill chunk over a slot's cached rows, as the JAX
+    package's chunked prefills compute it: q (1, C, H, D); ks, vs
+    (S, KV, D); allowed (C, S) bool. f32 scores, masked with -1e30, f32
+    softmax over all S rows; returns (1, C, H, D) in q's dtype."""
+    C, H, D = q.shape[1:]
+    KV = ks.shape[1]
+    qg = q[0].float().reshape(C, KV, H // KV, D)
+    s = torch.einsum("ckgd,skd->kgcs", qg, ks.float()) * scale
+    s = torch.where(allowed, s, torch.full((), -1e30, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("kgcs,skd->ckgd", p, vs.float())
+    return out.reshape(1, C, H, D).to(q.dtype)
+
+
+def make_chunked_prefill(params: Params, config: LlamaConfig,
+                         head: Optional[torch.Tensor] = None):
+    """Build the chunked prefill (Sarathi-style): one fixed-size chunk of
+    a long prompt per call, attending causally within the chunk and over
+    the slot's already-written prefix rows, so the engine can interleave
+    decode steps of other slots between chunks.
+
+    chunk(cache, tokens (1, C) padded, true_len-in-chunk, start_pos,
+          slot) → (cache, last_logits (vocab,) f32)
+
+    Writes exactly the valid rows ``[start_pos, start_pos + true_len)`` of
+    the slot, in place. (The JAX step writes the whole padded chunk with
+    ``dynamic_update_slice``; where ``start_pos + C`` runs past the cache,
+    XLA moves the write back over the prefix. This step has no such
+    case.) The slot's length becomes ``start_pos + true_len``; the logits
+    are the chunk's last valid token's."""
+    c = config
+    dev = params["embed"].device
+    cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
+                                device=dev)
+    head = head_f32(params, c) if head is None else head
+    scale = c.head_dim ** -0.5
+
+    def chunk(cache: Cache, tokens, true_len: int, start_pos: int,
+              slot: int):
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        pad_len = tokens.shape[1]
+        S = cache["k"].shape[2]
+        true_len, start_pos = int(true_len), int(start_pos)
+        end = start_pos + true_len
+        if end > S:
+            raise ValueError(f"chunk rows [{start_pos}, {end}) exceed the "
+                             f"cache's {S} rows")
+        x = params["embed"].to(c.dtype)[tokens]               # (1, C, E)
+        row_abs = start_pos + torch.arange(pad_len, device=dev)
+        positions = row_abs.clamp(max=cos.shape[0] - 1)[None, :]
+        allowed = (torch.arange(S, device=dev)[None, :]
+                   <= row_abs[:, None])                        # (C, S)
+        for i in range(c.n_layers):
+            layer = layer_params(params, i)
+            h = rmsnorm(x, layer["attn_norm"], c.norm_eps)
+            q, k, v = _qkv(h, layer)
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+            kc, vc = cache["k"][i], cache["v"][i]     # (slots, S, KV, D)
+            kc[slot, start_pos:end] = k[0, :true_len].to(kc.dtype)
+            vc[slot, start_pos:end] = v[0, :true_len].to(vc.dtype)
+            out = chunk_attention(q, kc[slot], vc[slot], allowed, scale)
+            x = x + _attn_out(out, layer)
+            x = x + _mlp(rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer)
+        x = rmsnorm(x, params["final_norm"], c.norm_eps)
+        logits = x[0, max(true_len - 1, 0)].float() @ head
+        cache["length"][slot] = end
+        return cache, logits
+
+    return chunk
+
+
+def make_inject(config: LlamaConfig):
+    """Build the KV injection: write an externally computed prompt KV
+    (from a prefill replica or a prefix cache) into one slot, in place.
+
+    inject(cache, k, v, true_len, slot) → cache
+        k, v: (layers, P, kv_heads, head_dim) host arrays or tensors,
+        padded to a bucket of at most the cache's rows; rows at or beyond
+        true_len must be zero."""
+    del config
+
+    def inject(cache: Cache, k, v, true_len: int, slot: int):
+        dev, dt = cache["k"].device, cache["k"].dtype
+        k = tensor_from_host(k, dev, dt)
+        v = tensor_from_host(v, dev, dt)
+        P = k.shape[1]
+        if P > cache["k"].shape[2]:
+            raise ValueError(f"KV of {P} rows exceeds the cache's "
+                             f"{cache['k'].shape[2]} rows")
+        cache["k"][:, slot, :P] = k
+        cache["v"][:, slot, :P] = v
+        cache["length"][slot] = int(true_len)
+        return cache
+
+    return inject
 
 
 def pad_to_bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:

@@ -19,8 +19,10 @@ the preallocated pool tensors** and return the same cache dict. The decode
 attention is :func:`ray_tpu_torch.ops.paged_decode_attention.paged_decode_attention`:
 the CUDA kernel on the card, its plain version on the CPU.
 
-Not ported yet: chunked paged prefill, paged inject, block copy and
-``extract_kv`` (see ROADMAP.md).
+Beside prefill and decode: the chunked prefill (one fixed-size chunk per
+call, from any start position, which also prefills a radix prefix hit's
+suffix), KV injection and extraction (the PD handoff and the legacy
+prefix cache) and the block copy behind copy-on-write.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ray_tpu_torch.models.convert import host_array, tensor_from_host
+from ray_tpu_torch.models.decoding import chunk_attention
 from ray_tpu_torch.models.llama import (LlamaConfig, Params, _attn_out, _mlp,
                                         _qkv, head_f32, layer_params)
 from ray_tpu_torch.ops.attention import mha_reference
@@ -315,6 +319,151 @@ def make_paged_prefill(params: Params, config: LlamaConfig,
         return cache, logits
 
     return prefill
+
+
+def make_chunked_paged_prefill(params: Params, config: LlamaConfig,
+                               page: PagedConfig,
+                               head: Optional[torch.Tensor] = None):
+    """Chunked prefill over the paged pool: one fixed-size chunk per call;
+    the chunk's k/v scatter into the blocks the table row names, and
+    attention runs over the slot's full prefix + chunk rows gathered
+    through the table.
+
+    chunk(cache, table_row (MBS,), tokens (1, C), true_len-in-chunk,
+          start_pos, slot) → (cache, last_logits (vocab,) f32)
+
+    C must be a multiple of block_size. ``start_pos`` may be any position
+    (the scatter is row by row), which lets a radix prefix hit resume
+    mid-block after a copy-on-write of the divergence block: rows before
+    ``start_pos`` stay untouched, each new row lands at its exact (block,
+    offset), padding rows in the null block. The block budget of the
+    whole prompt is ensured at admission, so chunking splits the compute,
+    never the allocation. Scores and softmax are f32 over the slot's
+    ``MBS * block_size`` gathered rows, read back from the pool after the
+    write; the pool is written in place, and the slot's length becomes
+    ``start_pos + true_len``."""
+    c = config
+    bs = page.block_size
+    MBS = page.max_blocks_per_seq
+    dev = params["embed"].device
+    cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
+                                device=dev)
+    head = head_f32(params, c) if head is None else head
+    scale = c.head_dim ** -0.5
+
+    def chunk(cache: PagedCache, table_row, tokens, true_len: int,
+              start_pos: int, slot: int):
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        pad_len = tokens.shape[1]
+        if pad_len % bs:
+            raise ValueError(f"chunk length {pad_len} must be a multiple "
+                             f"of block_size {bs}")
+        true_len, start_pos = int(true_len), int(start_pos)
+        row = torch.as_tensor(np.asarray(table_row), device=dev).long()
+        x = params["embed"].to(c.dtype)[tokens]               # (1, C, E)
+        rel = torch.arange(pad_len, device=dev)
+        row_abs = start_pos + rel
+        valid = rel < true_len
+        # a padding row past the table's end would index column MBS:
+        # clamp, then send every padding row to the null block
+        row_blk = torch.where(valid, row[(row_abs // bs).clamp(max=MBS - 1)],
+                              torch.zeros_like(row_abs))
+        row_off = row_abs % bs
+        positions = row_abs.clamp(max=cos.shape[0] - 1)[None, :]
+        allowed = (torch.arange(MBS * bs, device=dev)[None, :]
+                   <= row_abs[:, None])                        # (C, S)
+        for i in range(c.n_layers):
+            layer = layer_params(params, i)
+            h = rmsnorm(x, layer["attn_norm"], c.norm_eps)
+            q, k, v = _qkv(h, layer)
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+            kc, vc = cache["k"][i], cache["v"][i]         # (NB, bs, KV, D)
+            keep = valid[:, None, None]
+            kc.index_put_((row_blk, row_off),
+                          torch.where(keep, k[0], 0.0).to(kc.dtype))
+            vc.index_put_((row_blk, row_off),
+                          torch.where(keep, v[0], 0.0).to(vc.dtype))
+            out = chunk_attention(
+                q, kc[row].reshape(MBS * bs, c.n_kv_heads, c.head_dim),
+                vc[row].reshape(MBS * bs, c.n_kv_heads, c.head_dim),
+                allowed, scale)
+            x = x + _attn_out(out, layer)
+            x = x + _mlp(rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer)
+        x = rmsnorm(x, params["final_norm"], c.norm_eps)
+        logits = x[0, max(true_len - 1, 0)].float() @ head
+        cache["length"][slot] = start_pos + true_len
+        return cache, logits
+
+    return chunk
+
+
+def make_paged_inject(config: LlamaConfig, page: PagedConfig):
+    """inject(cache, table_row (MBS,) i32, k, v, true_len, slot) → cache.
+    k/v are (layers, P, KV, D) host arrays or tensors with P a multiple
+    of block_size; rows at or beyond true_len must be zero. Blocks at or
+    beyond true_len go to the null block, and only there (so writes to
+    its repeated index land where nothing reads them as valid). The KV
+    half of PD disaggregation and of the legacy prefix cache; the pool
+    is written in place."""
+    c = config
+    bs = page.block_size
+
+    def inject(cache: PagedCache, table_row, k, v, true_len: int,
+               slot: int):
+        dev, dt = cache["k"].device, cache["k"].dtype
+        k = tensor_from_host(k, dev, dt)
+        v = tensor_from_host(v, dev, dt)
+        pad_len = k.shape[1]
+        if pad_len % bs:
+            raise ValueError(f"padded KV length {pad_len} not a multiple "
+                             f"of block_size {bs}")
+        nblk = pad_len // bs
+        row = torch.as_tensor(np.asarray(table_row)[:nblk], device=dev)
+        dest = torch.where(torch.arange(nblk, device=dev) * bs < true_len,
+                           row.long(), torch.zeros_like(row, dtype=torch.long))
+        shape = (c.n_layers, nblk, bs, c.n_kv_heads, c.head_dim)
+        cache["k"][:, dest] = k.reshape(shape)
+        cache["v"][:, dest] = v.reshape(shape)
+        cache["length"][slot] = int(true_len)
+        return cache
+
+    return inject
+
+
+def make_block_copy(config: LlamaConfig, page: PagedConfig):
+    """copy(cache, src_block, dst_block) → cache. Device-side copy of one
+    pool block's k/v rows in every layer: the copy-on-write primitive
+    behind radix prefix sharing — a slot that must write into a shared
+    block first duplicates it, so the cached original stays read-only.
+    Runs on the current stream, in order with the decode kernels."""
+    del config, page
+
+    def copy(cache: PagedCache, src: int, dst: int):
+        cache["k"][:, int(dst)] = cache["k"][:, int(src)]
+        cache["v"][:, int(dst)] = cache["v"][:, int(src)]
+        return cache
+
+    return copy
+
+
+def extract_kv(cache: PagedCache, allocator: BlockAllocator, slot: int,
+               true_len: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Device → host copy of one slot's cached KV rows [0, true_len):
+    gathers the slot's blocks and trims. The PD / prefix-cache export:
+    numpy arrays (layers, true_len, KV, D) in the JAX package's dtypes
+    (bf16 as ``ml_dtypes.bfloat16``)."""
+    bs = allocator.page.block_size
+    nblk = allocator.blocks_for(true_len)
+    ids = torch.as_tensor(allocator.tables[slot, :nblk],
+                          device=cache["k"].device).long()
+    out = []
+    for pool in (cache["k"], cache["v"]):
+        rows = pool[:, ids]
+        L, _, _, KV, D = rows.shape
+        out.append(host_array(rows.reshape(L, nblk * bs, KV, D)
+                              [:, :true_len]))
+    return out[0], out[1]
 
 
 def pad_to_block_bucket(n: int, block_size: int,

@@ -9,6 +9,15 @@ attention is the hand-written CUDA kernel ``paged_decode_attention_kernel``;
 ``kv_cache="slot"`` keeps a flat per-slot ``max_seq`` reservation and
 decodes through ``decode_attention_kernel``.
 
+Chunked prefill (``prefill_chunk``): a prompt longer than the chunk
+prefills one chunk per engine iteration, interleaved with the decode of
+the other slots. Prefix reuse (``prefix_cache``): ``"radix"`` shares pool
+blocks between requests through the radix tree of
+:mod:`ray_tpu_torch.models.prefix_cache` and prefills only a hit's
+uncached suffix; ``"legacy"`` is the exact-match full-prompt host cache,
+re-injected on a hit. ``submit_prefilled`` admits a request whose prompt
+KV a prefill replica computed (PD disaggregation).
+
 Numerics: decode and prefill logits are f32 × f32 against one f32 copy of
 the output head made when the engine is built (2.1 GB at 8b) — not a cast
 per step. On the card the engine turns TF32 off for matmuls and cuDNN
@@ -16,9 +25,9 @@ per step. On the card the engine turns TF32 off for matmuls and cuDNN
 ``torch.backends.cudnn.allow_tf32`` are process-wide settings), so f32
 products are full f32 as in the JAX package.
 
-Not ported yet, and refused with ``NotImplementedError``: prefix caching,
-chunked prefill, speculation, PD ``submit_prefilled``, the Serve proxy's
-``Request`` bodies and ``LLMServer.stream`` (ROADMAP.md, queue A).
+Not ported yet, and refused with ``NotImplementedError``: speculation,
+the Serve proxy's ``Request`` bodies and ``LLMServer.stream`` (ROADMAP.md,
+queue A).
 """
 
 from __future__ import annotations
@@ -40,9 +49,6 @@ import torch
 from ray_tpu_torch import resolve_device
 
 _ROADMAP = {
-    "prefill_chunk": "queue A item 1, chunked paged prefill",
-    "prefix_cache": "queue A item 2, radix prefix cache",
-    "submit_prefilled": "queue A item 3, PD inject/extract",
     "speculation": "queue A item 4, speculative decoding",
     "serve": "queue A item 5, LLMServer.stream and the Serve proxy",
 }
@@ -65,6 +71,10 @@ class _Request:
     output: List[int] = dataclasses.field(default_factory=list)
     error: Optional[str] = None
     enqueued_at: float = dataclasses.field(default_factory=time.monotonic)
+    # KV handed off from a prefill replica (PD disaggregation): dict with
+    # "k"/"v" (layers, len, kv_heads, hd) numpy + "logits" of the last
+    # prompt token; admission injects instead of prefilling.
+    preload: Optional[dict] = None
     # per-request speculation override, normalized by _parse_req_spec
     spec: Optional[dict] = None
     # multi-tenant identity: per-tenant fair-share admission keys off this
@@ -101,10 +111,18 @@ class LLMEngine:
 
     ``kv_cache="paged"`` (default): KV memory per request tracks tokens
     actually cached, ``kv_pool_tokens`` bounds the total, and a request
-    that outgrows the pool preempts the youngest other slot (recompute
-    preemption: its blocks are freed and it re-queues with
-    prompt+generated-so-far as the new prompt). ``kv_cache="slot"`` keeps
-    the flat per-slot ``max_seq`` reservation.
+    that outgrows the pool first evicts cold cached prefixes, then
+    preempts the youngest other slot (recompute preemption: its blocks are
+    freed and it re-queues with prompt+generated-so-far as the new
+    prompt). ``kv_cache="slot"`` keeps the flat per-slot ``max_seq``
+    reservation.
+
+    Prefix reuse is off by default; ``prefix_cache`` (or the
+    ``RT_prefix_cache`` environment variable) picks ``"radix"`` (paged
+    only) or ``"legacy"``, and a positive ``prefix_cache_size`` or
+    ``prefix_cache_bytes`` turns it on (radix when paged). Both modes
+    share one byte budget, ``prefix_cache_bytes``; the legacy mode's
+    entry cap ``prefix_cache_size`` applies too.
 
     ``device=None`` means ``"cuda"`` and raises without CUDA; pass
     ``device="cpu"`` to run on the CPU (the kernels' plain versions).
@@ -133,11 +151,14 @@ class LLMEngine:
             raise ValueError(
                 f"kv_block_size={kv_block_size} must divide 2048")
         if prefill_chunk is not None:
-            raise _not_ported("prefill_chunk", "prefill_chunk")
+            if prefill_chunk <= 0:
+                raise ValueError("prefill_chunk must be positive")
+            if kv_cache == "paged" and prefill_chunk % kv_block_size:
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk} must be a multiple of "
+                    f"kv_block_size={kv_block_size}")
         if speculation is not None:
             raise _not_ported("speculation", "speculation")
-        # the reference's order: resolve the mode, refuse what no engine
-        # takes, then what the port does not take yet
         mode = prefix_cache
         if mode is None:
             mode = os.environ.get("RT_prefix_cache")
@@ -152,15 +173,9 @@ class LLMEngine:
         if mode == "radix" and kv_cache != "paged":
             raise ValueError("prefix_cache='radix' requires "
                              "kv_cache='paged' (it shares pool blocks)")
-        if mode != "off":
-            # the legacy mode re-injects cached KV: it rests on item 3
-            raise _not_ported(f"prefix_cache={mode!r}",
-                              "prefix_cache" if mode == "radix"
-                              else "submit_prefilled")
         self.prefill_chunk = prefill_chunk
         self.speculation = speculation
         self.spec_k = spec_k
-        self._prefix_cache_bytes = prefix_cache_bytes or 0
 
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -178,7 +193,8 @@ class LLMEngine:
         if kv_cache == "paged":
             from ray_tpu_torch.models.paged_cache import (
                 BlockAllocator, PagedConfig, init_paged_cache,
-                make_paged_decode_step, make_paged_prefill)
+                make_chunked_paged_prefill, make_paged_decode_step,
+                make_paged_inject, make_paged_prefill)
 
             pool_tokens = kv_pool_tokens or num_slots * self.max_seq
             num_blocks = 1 + -(-pool_tokens // kv_block_size)  # +null
@@ -193,9 +209,16 @@ class LLMEngine:
                                                   self._page, head=head)
             self._prefill = make_paged_prefill(self.params, self.config,
                                                self._page, head=head)
+            self._inject = make_paged_inject(self.config, self._page)
+
+            def chunked():
+                return make_chunked_paged_prefill(
+                    self.params, self.config, self._page, head=head)
         else:
             from ray_tpu_torch.models.decoding import (init_cache,
+                                                       make_chunked_prefill,
                                                        make_decode_step,
+                                                       make_inject,
                                                        make_prefill)
 
             self._cache = init_cache(self.config, num_slots, self.max_seq,
@@ -204,6 +227,60 @@ class LLMEngine:
                                             head=head)
             self._prefill = make_prefill(self.params, self.config,
                                          head=head)
+            self._inject = make_inject(self.config)
+
+            def chunked():
+                return make_chunked_prefill(self.params, self.config,
+                                            head=head)
+        # Chunked prefill: prompts longer than the chunk prefill one chunk
+        # per engine iteration, interleaved with the decode of the other
+        # slots, so a long prompt does not stall everyone's TTFT.
+        self._chunk_prefill = chunked() if prefill_chunk is not None \
+            else None
+        # slot -> {"req", "tokens", "pos"} for in-progress chunked prefills
+        self._prefilling: Dict[int, dict] = {}
+        self._chunks_run = 0
+        # Prefix reuse across requests, off by default:
+        #   "radix"  — the radix tree shares the prompt's pool blocks
+        #              read-only between requests (copy-on-write at the
+        #              divergence block), so a shared-system-prompt
+        #              request prefills only its new tokens;
+        #   "legacy" — the exact-match full-prompt host cache, kept as a
+        #              parity oracle: a hit re-injects a device→host KV
+        #              copy.
+        self._prefix_mode = mode
+        self._prefix_cache: "collections.OrderedDict" = \
+            collections.OrderedDict()
+        self._prefix_cache_size = prefix_cache_size
+        self._prefix_cache_hostbytes = 0
+        self._prefix_hits = 0
+        self._prefix_misses = 0
+        self._prefix_match_faults = 0
+        self._prefix_insert_faults = 0
+        self._radix = None
+        if mode == "radix":
+            from ray_tpu_torch.models.paged_cache import make_block_copy
+            from ray_tpu_torch.models.prefix_cache import RadixPrefixCache
+
+            c = self.config
+            bytes_per_block = (2 * c.n_layers * kv_block_size * c.n_kv_heads
+                               * c.head_dim * self._cache["k"].element_size())
+            if prefix_cache_bytes is None:
+                # the tree may cache up to half the pool: pool-pressure
+                # eviction reclaims cold blocks anyway
+                prefix_cache_bytes = ((self._page.num_blocks - 1) // 2
+                                      * bytes_per_block)
+            self._radix = RadixPrefixCache(
+                self._alloc, bytes_per_block=bytes_per_block,
+                budget_bytes=prefix_cache_bytes)
+            self._block_copy = make_block_copy(self.config, self._page)
+            if self._chunk_prefill is None:
+                # a radix hit's suffix prefill rides the chunked prefill
+                # (row-level scatter, any start) even without chunking
+                self._chunk_prefill = chunked()
+        elif mode == "legacy" and prefix_cache_bytes is None:
+            prefix_cache_bytes = 64 << 20
+        self._prefix_cache_bytes = prefix_cache_bytes or 0
         self._fair_share_skips = 0
 
         self._queue: "queue.Queue[_Request]" = queue.Queue()
@@ -286,8 +363,30 @@ class LLMEngine:
         ent["req"].cancelled = True
         return True
 
-    def submit_prefilled(self, *args, **kwargs) -> str:
-        raise _not_ported("submit_prefilled", "submit_prefilled")
+    def submit_prefilled(self, prompt: List[int], k, v, logits,
+                         max_tokens: int = 64, temperature: float = 0.0,
+                         eos_token: Optional[int] = None) -> str:
+        """Decode-side half of PD disaggregation: admit a request whose
+        prompt KV a prefill replica computed. k/v are (layers,
+        len(prompt), kv_heads, head_dim) host arrays (a JAX engine's
+        bf16 ``ml_dtypes`` arrays included), logits the last prompt
+        position's logits. Poll with :meth:`poll`."""
+        req = self._new_request(prompt, max_tokens, temperature, eos_token,
+                                None, None)
+        k, v = np.asarray(k), np.asarray(v)
+        c = self.config
+        want = (c.n_layers, len(prompt), c.n_kv_heads, c.head_dim)
+        if k.shape != want or v.shape != want:
+            # the caller's thread: the mismatch reaches the submitter
+            # instead of failing the engine loop for every request
+            raise ValueError(
+                f"prefilled KV shape {k.shape}/{v.shape} != expected {want}")
+        req.preload = {"k": k, "v": v, "logits": np.asarray(logits)}
+        rid = uuid.uuid4().hex
+        with self._pending_lock:
+            self._pending[rid] = {"req": req, "sent": 0}
+        self._queue.put(req)
+        return rid
 
     def poll(self, request_id: str) -> Dict[str, Any]:
         """New tokens since the last poll + done flag. The entry is dropped
@@ -316,30 +415,53 @@ class LLMEngine:
                "kv_cache": self.kv_cache,
                "device": str(self.device),
                "fair_share_skips": self._fair_share_skips,
-               # the reference's keys for features that are off here
-               "prefix_hits": 0,
-               "prefix_misses": 0,
-               "prefill_chunks_run": 0,
-               "prefilling_slots": 0,
+               "prefix_hits": self._prefix_hits,
+               "prefix_misses": self._prefix_misses,
+               "prefill_chunks_run": self._chunks_run,
+               "prefilling_slots": len(self._prefilling),
+               # speculation is not ported: the reference's off values
                "spec_proposed": 0,
                "spec_accepted": 0,
                "spec_acceptance_rate": None,
-               "speculation": self.speculation,
-               "prefix_cache": {"mode": "off",
-                                "match_faults": 0, "insert_faults": 0,
-                                "budget_bytes": self._prefix_cache_bytes,
-                                "entries": 0, "cached_bytes": 0}}
+               "speculation": self.speculation}
         if self.kv_cache == "paged":
             out.update(
                 preemptions=self._preemptions,
                 kv_blocks_free=self._alloc.free_blocks(),
                 kv_blocks_total=self._page.num_blocks - 1,
                 kv_block_size=self._page.block_size)
+        pc = {"mode": self._prefix_mode,
+              "match_faults": self._prefix_match_faults,
+              "insert_faults": self._prefix_insert_faults,
+              "budget_bytes": self._prefix_cache_bytes}
+        if self._radix is not None:
+            pc.update(self._radix.stats())
+            out["prefix_hits"] = pc["hits"]
+            out["prefix_misses"] = pc["misses"]
+        else:
+            pc.update(entries=len(self._prefix_cache),
+                      cached_bytes=self._prefix_cache_hostbytes)
+        out["prefix_cache"] = pc
         return out
 
     def prefix_digest(self) -> List[int]:
-        """Cached prefixes for prefix-aware routing: none, as the
-        reference's engine with its prefix cache off."""
+        """Cached prefixes for prefix-aware routing: cumulative
+        16-token-chunk hashes in the router's scheme
+        (:func:`ray_tpu_torch.models.prefix_cache.prefix_hashes`). The
+        engine thread mutates the cache meanwhile, so a torn walk returns
+        a partial digest rather than an error (it is a routing hint)."""
+        try:
+            if self._radix is not None:
+                return self._radix.digest()
+            if self._prefix_mode == "legacy":
+                from ray_tpu_torch.models.prefix_cache import prefix_hashes
+
+                out = set()
+                for key in list(self._prefix_cache):
+                    out.update(prefix_hashes(list(key)))
+                return sorted(out)[:128]
+        except Exception:  # noqa: BLE001 — a hint only, never a failure
+            pass
         return []
 
     def shutdown(self):
@@ -387,6 +509,119 @@ class LLMEngine:
                 return i
         return 0  # every tenant at/over share: work-conserving FIFO
 
+    def _inject_kv(self, slot: int, k, v, true_len: int):
+        """Pad external KV rows to a bucket and write them into ``slot``.
+        Paged: the caller must have ensure()d blocks for ``true_len``."""
+        from ray_tpu_torch.models.convert import tensor_from_host
+
+        P = self._prompt_pad(true_len)
+        dev, dt = self._cache["k"].device, self._cache["k"].dtype
+        k = tensor_from_host(k, dev, dt)
+        v = tensor_from_host(v, dev, dt)
+        pad = P - k.shape[1]
+        if pad > 0:
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        if self.kv_cache == "paged":
+            self._cache = self._inject(self._cache, self._alloc.tables[slot],
+                                       k, v, true_len, slot)
+        else:
+            self._cache = self._inject(self._cache, k, v, true_len, slot)
+
+    def _extract_kv(self, slot: int, true_len: int):
+        """Device → host copy of one slot's prompt KV (rows [0, true_len))
+        as numpy arrays in the JAX package's dtypes."""
+        if self.kv_cache == "paged":
+            from ray_tpu_torch.models.paged_cache import extract_kv
+
+            return extract_kv(self._cache, self._alloc, slot, true_len)
+        from ray_tpu_torch.models.convert import host_array
+
+        return (host_array(self._cache["k"][:, slot, :true_len]),
+                host_array(self._cache["v"][:, slot, :true_len]))
+
+    def _radix_match(self, full_prompt: List[int]):
+        """Longest cached prefix of the prompt. All but the last prompt
+        token is eligible, so the block where the suffix prefill and the
+        first decode write land is always private: a shared block is never
+        written. An injected serve.llm.prefix_match fault degrades to a
+        cold prefill with a typed counter, never a failed request."""
+        from ray_tpu_torch.common import faults
+
+        try:
+            faults.fault_point("serve.llm.prefix_match")
+        except ConnectionError:
+            self._prefix_match_faults += 1
+            return None
+        m = self._radix.match(full_prompt[:-1])
+        return m if m.matched else None
+
+    def _radix_insert(self, req: _Request, toks: List[int], slot: int):
+        """Share the slot's full-block prefix into the radix tree, zero
+        copy: the tree increfs the slot's own blocks. Gated by the byte
+        budget and the per-tenant fair share; an injected
+        serve.llm.prefix_insert fault skips the insert with a typed
+        counter (nothing is ever half-inserted)."""
+        if self._radix is None:
+            return
+        from ray_tpu_torch.common import faults
+
+        try:
+            faults.fault_point("serve.llm.prefix_insert")
+        except ConnectionError:
+            self._prefix_insert_faults += 1
+            return
+        bs = self._page.block_size
+        nfull = min(len(toks) // bs,
+                    int(np.count_nonzero(self._alloc.tables[slot])))
+        if nfull <= 0:
+            return
+        max_new = None
+        tb = self._radix.tenant_blocks
+        tenants = set(tb) | {req.tenant}
+        if len(tenants) > 1:
+            # cache-insert fair share: with several tenants caching, each
+            # may pin at most its share of the byte budget
+            cap = max(1, self._radix.budget_blocks() // len(tenants))
+            max_new = cap - tb.get(req.tenant, 0)
+            if max_new <= 0:
+                self._fair_share_skips += 1
+                return
+        blocks = [int(b) for b in self._alloc.tables[slot, :nfull]]
+        self._radix.insert(toks[:nfull * bs], blocks, tenant=req.tenant,
+                           max_new=max_new)
+
+    def _legacy_insert(self, key, logits_np, slot: int, plen: int,
+                       resumed: bool):
+        """Exact-match host cache insert (the legacy parity oracle), under
+        the same byte budget as the radix path and the entry cap."""
+        if self._prefix_mode != "legacy" or resumed:
+            return
+        self._prefix_misses += 1
+        k, v = self._extract_kv(slot, plen)
+        self._prefix_cache[key] = {"k": k, "v": v, "logits": logits_np}
+        self._prefix_cache_hostbytes += k.nbytes + v.nbytes
+        while self._prefix_cache and (
+                (self._prefix_cache_size > 0
+                 and len(self._prefix_cache) > self._prefix_cache_size)
+                or (self._prefix_cache_bytes > 0
+                    and self._prefix_cache_hostbytes
+                    > self._prefix_cache_bytes)):
+            _, old = self._prefix_cache.popitem(last=False)
+            self._prefix_cache_hostbytes -= (old["k"].nbytes
+                                             + old["v"].nbytes)
+
+    def _start_prefilling(self, slot: int, req: _Request,
+                          tokens: List[int], pos: int):
+        """Park ``slot`` mid-prefill: the engine loop advances it one
+        chunk per iteration from ``pos`` and activates it after the last
+        (:meth:`_advance_chunked_prefill`)."""
+        self._slots[slot] = req
+        self._slot_len[slot] = 0
+        self._admit_counter += 1
+        self._admit_seq[slot] = self._admit_counter
+        self._prefilling[slot] = {"req": req, "tokens": tokens, "pos": pos}
+
     def _admit(self):
         # drain the thread-safe queue into the FIFO admission deque
         while True:
@@ -407,6 +642,7 @@ class LLMEngine:
             # preempted requests resume by recomputing prompt+generated
             full_prompt = req.prompt + req.output
             plen = len(full_prompt)
+            match = None
             if self.kv_cache == "paged":
                 # ensure plen + 1: this iteration's decode step writes
                 # the first generated token at position plen, which
@@ -421,26 +657,77 @@ class LLMEngine:
                                  "pool capacity")
                     req.done.set()
                     continue
+                if self._radix is not None and req.preload is None:
+                    match = self._radix_match(full_prompt)
+                shared = match.blocks if match is not None else []
                 # watermark: beyond this request's blocks, keep one
                 # growth block of headroom per already-active slot, or
                 # admission starves running requests into preemption
-                need = total + sum(s is not None for s in self._slots)
+                need = (total - len(shared)
+                        + sum(s is not None for s in self._slots))
+                if shared:
+                    # pin the matched blocks first: the pool-pressure
+                    # eviction below must never reclaim them
+                    self._alloc.adopt(slot, shared)
+                if self._alloc.free_blocks() < need and \
+                        self._radix is not None:
+                    self._radix.evict_for(need - self._alloc.free_blocks())
                 if self._alloc.free_blocks() < need or not \
                         self._alloc.ensure(slot, plen + 1):
-                    self._alloc.release(slot)
+                    self._alloc.release(slot)  # un-pin the match
                     return  # picked request waits for blocks (no bypass)
+                if match is not None and match.cow is not None:
+                    # copy-on-write at the divergence block: ensure()
+                    # placed a private block at the first position past
+                    # the shared prefix; copy the cached block's rows into
+                    # it, so the suffix prefill resumes mid-block while
+                    # the cached original stays read-only
+                    self._cache = self._block_copy(
+                        self._cache, match.cow[0],
+                        int(self._alloc.tables[slot, len(shared)]))
             del self._waiting[idx]
-            P = self._prompt_pad(plen)
-            tokens = np.zeros((1, P), np.int32)
-            tokens[0, :plen] = full_prompt
-            if self.kv_cache == "paged":
-                self._cache, logits = self._prefill(
-                    self._cache, self._alloc.tables[slot], tokens, plen,
-                    slot)
+            resumed = bool(req.output)
+            matched = match.matched if match is not None else 0
+            key = tuple(full_prompt)
+            cached = None
+            if (self._prefix_mode == "legacy" and req.preload is None
+                    and not resumed):
+                cached = self._prefix_cache.get(key)
+            if req.preload is not None:
+                # PD handoff: prompt KV computed by a prefill replica
+                self._inject_kv(slot, req.preload["k"], req.preload["v"],
+                                plen)
+                logits_np = req.preload["logits"]
+                req.preload = None  # free the host copy
+            elif cached is not None:
+                self._prefix_hits += 1
+                self._prefix_cache.move_to_end(key)
+                self._inject_kv(slot, cached["k"], cached["v"], plen)
+                logits_np = cached["logits"]
+            elif matched > 0:
+                # radix hit: the adopted blocks hold the prefix KV;
+                # prefill only the uncached suffix, through the chunked
+                # prefill, so a long suffix still interleaves with decode
+                self._start_prefilling(slot, req, full_prompt, matched)
+                continue
+            elif (self.prefill_chunk is not None
+                  and plen > self.prefill_chunk):
+                self._start_prefilling(slot, req, full_prompt, 0)
+                continue
             else:
-                self._cache, logits = self._prefill(self._cache, tokens,
-                                                    plen, slot)
-            logits_np = logits.cpu().numpy()
+                P = self._prompt_pad(plen)
+                tokens = np.zeros((1, P), np.int32)
+                tokens[0, :plen] = full_prompt
+                if self.kv_cache == "paged":
+                    self._cache, logits = self._prefill(
+                        self._cache, self._alloc.tables[slot], tokens, plen,
+                        slot)
+                else:
+                    self._cache, logits = self._prefill(self._cache, tokens,
+                                                        plen, slot)
+                logits_np = logits.cpu().numpy()
+                self._legacy_insert(key, logits_np, slot, plen, resumed)
+                self._radix_insert(req, full_prompt, slot)
             tok = self._sample(logits_np.reshape(1, -1), req.temperature)[0]
             req.output.append(int(tok))
             self._slots[slot] = req
@@ -449,6 +736,42 @@ class LLMEngine:
             self._admit_counter += 1
             self._admit_seq[slot] = self._admit_counter
             self._maybe_finish(slot)
+
+    def _advance_chunked_prefill(self):
+        """Run one chunk of the oldest in-progress chunked prefill; after
+        the last chunk, sample the first token and activate the slot."""
+        slot = next(iter(self._prefilling))
+        st = self._prefilling[slot]
+        toks, pos, C = st["tokens"], st["pos"], self.prefill_chunk
+        if C is None:
+            # a radix hit's suffix on an engine without chunked prefill:
+            # one call covering the whole uncached suffix
+            C = self._prompt_pad(len(toks) - pos)
+        n = min(C, len(toks) - pos)
+        buf = np.zeros((1, C), np.int32)
+        buf[0, :n] = toks[pos:pos + n]
+        if self.kv_cache == "paged":
+            self._cache, logits = self._chunk_prefill(
+                self._cache, self._alloc.tables[slot], buf, n, pos, slot)
+        else:
+            self._cache, logits = self._chunk_prefill(self._cache, buf, n,
+                                                      pos, slot)
+        self._chunks_run += 1
+        st["pos"] = pos + n
+        if st["pos"] < len(toks):
+            return
+        req = st["req"]
+        del self._prefilling[slot]
+        plen = len(toks)
+        logits_np = logits.cpu().numpy()
+        self._legacy_insert(tuple(toks), logits_np, slot, plen,
+                            bool(req.output))
+        self._radix_insert(req, toks, slot)
+        tok = self._sample(logits_np.reshape(1, -1), req.temperature)[0]
+        req.output.append(int(tok))
+        self._last_token[slot] = tok
+        self._slot_len[slot] = plen
+        self._maybe_finish(slot)
 
     def _sample(self, logits: np.ndarray, temperature: float) -> np.ndarray:
         if temperature <= 0.0:
@@ -471,6 +794,13 @@ class LLMEngine:
                     and req.output[-1] == req.eos_token)
                 or len(req.prompt) + len(req.output) >= self.max_seq)
         if done:
+            if self._radix is not None and not req.cancelled:
+                # on completion, offer the whole cached sequence (prompt +
+                # generated) to the tree: multi-turn conversations hit on
+                # their own history. Zero copy: the tree increfs the
+                # blocks release() is about to drop the slot's ref on.
+                seq = (req.prompt + req.output)[:int(self._slot_len[slot])]
+                self._radix_insert(req, seq, slot)
             req.done.set()
             self._slots[slot] = None
             if self.kv_cache == "paged":
@@ -483,17 +813,24 @@ class LLMEngine:
         req = self._slots[slot]
         self._slots[slot] = None
         self._alloc.release(slot)
+        # a mid-chunked-prefill victim restarts its prefill on re-admission
+        self._prefilling.pop(slot, None)
         self._waiting.appendleft(req)
         self._preemptions += 1
 
     def _grow_active_slots(self) -> None:
         """Before a decode step each active slot needs its next token's
-        block. On pool exhaustion, preempt the youngest other active
-        slot; a slot alone in the pool preempts itself."""
+        block. On pool exhaustion, evict cold cached prefixes first, then
+        preempt the youngest other active slot; a slot alone in the pool
+        preempts itself."""
         for slot in range(self.num_slots):
             if self._slots[slot] is None:
                 continue
             while not self._alloc.ensure(slot, int(self._slot_len[slot]) + 1):
+                # LRU, refcount-0 only: a block any live slot references
+                # is untouchable
+                if self._radix is not None and self._radix.evict_for(1):
+                    continue
                 victims = [s for s in range(self.num_slots)
                            if s != slot and self._slots[s] is not None]
                 if victims:
@@ -524,6 +861,7 @@ class LLMEngine:
                             self._slots[slot] = None
                             if self.kv_cache == "paged":
                                 self._alloc.release(slot)
+                    self._prefilling.clear()
 
     _PENDING_TTL_S = 180.0
 
@@ -549,9 +887,16 @@ class LLMEngine:
         if self.kv_cache == "paged":
             self._grow_active_slots()
         self._admit()
-        active = np.array([s is not None for s in self._slots])
+        # one prefill chunk per iteration: bounded interference with the
+        # decode of the already-active slots
+        if self._prefilling:
+            self._advance_chunked_prefill()
+        active = np.array([self._slots[s] is not None
+                           and s not in self._prefilling
+                           for s in range(self.num_slots)])
         if not active.any():
-            time.sleep(0.002)
+            if not self._prefilling:
+                time.sleep(0.002)
             return
         if self.kv_cache == "paged":
             self._cache, logits = self._decode(
@@ -564,7 +909,8 @@ class LLMEngine:
         self._steps += 1
         for slot in range(self.num_slots):
             req = self._slots[slot]
-            if req is None:
+            if req is None or slot in self._prefilling:
+                # mid-prefill slots were masked out of the decode
                 continue
             tok = self._sample(logits_np[slot][None], req.temperature)[0]
             req.output.append(int(tok))

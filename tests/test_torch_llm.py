@@ -1,11 +1,12 @@
 """The port's LLMEngine (device="cpu") against ray_tpu's LLMEngine on the
 same converted ``debug`` weights: greedy outputs must be token-identical
 in both cache modes, with mid-stream admission (6 requests on 3 slots)
-and under a pool small enough to force recompute preemption. Also the
-engine surface: the reference's keywords, stats keys and prefix digest
-with every optional feature off, unported options raise
-NotImplementedError, bad prefix modes ValueError as in the reference, and
-the default device is the card."""
+and under a pool small enough to force recompute preemption, and with
+chunked prefill (mirroring tests/test_llm.py::TestChunkedPrefill). Also
+the engine surface: the reference's keywords, stats keys and prefix
+digest with every optional feature off, speculation raises
+NotImplementedError, bad prefix modes and chunk sizes ValueError as in the
+reference, and the default device is the card."""
 
 import threading
 import time
@@ -138,11 +139,6 @@ def test_oversize_prompt_fails_cleanly(tparams):
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"prefix_cache": "radix"}, "prefix_cache"),
-    ({"prefix_cache_size": 4}, "prefix_cache"),
-    ({"prefix_cache": "legacy"}, "prefix_cache"),
-    ({"prefix_cache_size": 4, "kv_cache": "slot"}, "prefix_cache"),
-    ({"prefill_chunk": 32}, "prefill_chunk"),
     ({"speculation": "ngram", "kv_cache": "slot"}, "speculation")])
 def test_unported_options_raise(kw, what):
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
@@ -233,7 +229,94 @@ def test_server_surface(tparams):
             srv({"prompt": [1, 2]})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             next(iter(srv.stream([1, 2])))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            srv.engine.submit_prefilled([1], None, None, None)
+        with pytest.raises(ValueError, match="prefilled KV shape"):
+            srv.engine.submit_prefilled([1], np.zeros((1, 1)),
+                                        np.zeros((1, 1)), np.zeros(256))
     finally:
         srv.engine.shutdown()
+
+
+# ------------------------------------------------------ chunked prefill
+
+CHUNK_PROMPTS = [list(range(1, 60)), [5, 6, 7], list(range(20, 55))]
+
+
+def _engine(tparams, **kw):
+    kw.setdefault("num_slots", 4)
+    kw.setdefault("kv_block_size", 16)
+    return LLMEngine(model="debug", params=tparams, device="cpu", **kw)
+
+
+def _generate_each(eng, prompts, max_tokens=8):
+    try:
+        return [eng.generate(p, max_tokens=max_tokens, timeout_s=120)
+                for p in prompts], eng.stats()
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("kv_cache", ["paged", "slot"])
+def test_chunked_prefill_matches_unchunked_and_jax(jparams, tparams,
+                                                   kv_cache):
+    """Chunks of 16: 59 tokens run 4 chunks, 35 run 3, the 3-token prompt
+    none. Greedy tokens equal the port's unchunked engine's and the JAX
+    chunked engine's; both count the same chunks."""
+    kw = dict(kv_cache=kv_cache, prefill_chunk=16)
+    want, jst = _generate_each(
+        JaxEngine(model="debug", params=jparams, num_slots=4,
+                  kv_block_size=16, **kw), CHUNK_PROMPTS)
+    base, _ = _generate_each(_engine(tparams, kv_cache=kv_cache),
+                             CHUNK_PROMPTS)
+    got, st = _generate_each(_engine(tparams, **kw), CHUNK_PROMPTS)
+    assert got == base == want
+    assert st["prefill_chunks_run"] == jst["prefill_chunks_run"] == 7
+    assert st["prefilling_slots"] == 0
+
+
+@pytest.mark.parametrize("kv_cache", ["paged", "slot"])
+def test_chunked_long_and_short_concurrent(tparams, kv_cache):
+    """A long prompt prefills chunk by chunk while a short one decodes
+    beside it: both equal the unchunked engine's tokens."""
+    prompts = [list(range(2, 50)), [9, 8, 7]]
+    base, _ = _generate_each(_engine(tparams, kv_cache=kv_cache), prompts,
+                             max_tokens=6)
+    eng = _engine(tparams, kv_cache=kv_cache, prefill_chunk=16)
+    try:
+        outs = _submit_all(eng, [(p, 6) for p in prompts])
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    assert [outs[0], outs[1]] == base
+    assert st["prefill_chunks_run"] == 3 and st["prefilling_slots"] == 0
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"kv_cache": "paged", "prefill_chunk": 24}, "multiple of"),
+    ({"kv_cache": "slot", "prefill_chunk": 0}, "positive")])
+@pytest.mark.parametrize("engine", ["jax", "torch"])
+def test_bad_prefill_chunk_raises_value_error(engine, kw, match):
+    with pytest.raises(ValueError, match=match):
+        if engine == "jax":
+            JaxEngine(model="debug", kv_block_size=16, **kw)
+        else:
+            LLMEngine(model="debug", device="cpu", kv_block_size=16, **kw)
+
+
+def test_slot_chunk_past_the_cache_end_equals_unchunked(jparams, tparams):
+    """max_seq=128, chunks of 48, a 110-token prompt: the last chunk
+    starts at 96 and its padded end, 144, runs past the cache. The port
+    writes only the chunk's 14 valid rows, so its tokens equal its own
+    unchunked tokens, which equal the JAX engine's unchunked tokens. The
+    JAX chunked engine differs here: it writes the padded chunk with
+    ``dynamic_update_slice`` (``ray_tpu/models/decoding.py:248-256``),
+    which XLA clamps to start at 128 - 48 = 80, so the chunk's rows land
+    16 rows early, over the prefix (ROADMAP.md, C)."""
+    prompt = np.random.default_rng(0).integers(1, 256, 110).tolist()
+    kw = dict(num_slots=2, max_seq=128, kv_cache="slot")
+    want, _ = _generate_each(JaxEngine(model="debug", params=jparams, **kw),
+                             [prompt])
+    base, _ = _generate_each(_engine(tparams, **kw), [prompt])
+    got, st = _generate_each(_engine(tparams, prefill_chunk=48, **kw),
+                             [prompt])
+    assert got == base == want
+    assert st["prefill_chunks_run"] == 3

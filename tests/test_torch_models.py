@@ -261,3 +261,178 @@ def test_port_paged_equals_port_slot(weights):
     sf, ss, st = _run("torch", tc, tp, paged=False)
     assert pt == st
     np.testing.assert_allclose(pf, sf, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------- chunked prefill, KV I/O
+
+PROMPT = list(range(3, 43))                       # 40 tokens
+# (start, true_len) of each chunk of 16: the second resumes mid-block
+SCHEDULE = [(0, 5), (5, 16), (21, 16), (37, 3)]
+
+
+def _pool_setup(mod_p, num_slots=2):
+    page = mod_p.PagedConfig(num_blocks=17, block_size=16, max_seq=128)
+    al = mod_p.BlockAllocator(page, num_slots)
+    al.ensure(1, 3 * page.block_size)             # fragment the free list
+    al.ensure(0, len(PROMPT) + 1)
+    al.release(1)
+    return page, al
+
+
+def _chunked(pkg, cfg, params, paged: bool):
+    """Prefill PROMPT into slot 0 chunk by chunk (SCHEDULE); returns each
+    chunk's logits, the cache as numpy, and the whole-prompt prefill's
+    logits and cache on a fresh cache."""
+    j = pkg == "jax"
+    mod_p, mod_d = (jpaged, jdecoding) if j else (tpaged, tdecoding)
+    arr = jnp.asarray if j else (lambda a: a)
+
+    def host(t):
+        return np.asarray(t) if j else t.float().numpy()
+
+    if paged:
+        page, al = _pool_setup(mod_p)
+        fresh = lambda: mod_p.init_paged_cache(cfg, page, 2)  # noqa: E731
+        chunk = mod_p.make_chunked_paged_prefill(params, cfg, page)
+        whole = mod_p.make_paged_prefill(params, cfg, page)
+    else:
+        fresh = lambda: mod_d.init_cache(cfg, 2, max_seq=128)  # noqa: E731
+        chunk = mod_d.make_chunked_prefill(params, cfg)
+        whole = mod_d.make_prefill(params, cfg)
+    cache, logits = fresh(), []
+    for start, n in SCHEDULE:
+        buf = np.zeros((1, 16), np.int32)
+        buf[0, :n] = PROMPT[start:start + n]
+        args = (al.tables[0],) if paged else ()
+        cache, lg = chunk(cache, *args, arr(buf), n, start, 0)
+        logits.append(host(lg))
+    tokens = np.zeros((1, 64), np.int32)
+    tokens[0, :len(PROMPT)] = PROMPT
+    args = (al.tables[0],) if paged else ()
+    ref, ref_lg = whole(fresh(), *args, arr(tokens), len(PROMPT), 0)
+    return (logits, {k: host(v) for k, v in cache.items()}, host(ref_lg),
+            {k: host(v) for k, v in ref.items()})
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "slot"])
+def test_chunked_prefill_matches_jax(weights, paged):
+    """f32 debug, chunks of 16 from positions 0, 5 (mid-block), 21 and 37:
+    each chunk's logits within 1e-4 of the JAX chunk's, the cache after
+    (every pool block, lengths) within 1e-5; and the last chunk's logits
+    and the prompt's cached rows within 1e-4 of the whole-prompt prefill's
+    (the same rows, attention summed in another order)."""
+    jc, tc, jp, tp = weights["f32"]
+    jl, jcache, _, _ = _chunked("jax", jc, jp, paged)
+    with torch.inference_mode():
+        tl, tcache, wl, wcache = _chunked("torch", tc, tp, paged)
+    for a, b in zip(tl, jl):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+    for key in ("k", "v", "length"):
+        np.testing.assert_allclose(tcache[key], jcache[key], rtol=1e-5,
+                                   atol=1e-5)
+    assert tcache["length"][0] == len(PROMPT)
+    np.testing.assert_allclose(tl[-1], wl, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tcache["k"], wcache["k"], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_paged_chunk_must_be_block_multiple(weights):
+    _, tc, _, tp = weights["f32"]
+    page, al = _pool_setup(tpaged)
+    chunk = tpaged.make_chunked_paged_prefill(tp, tc, page)
+    with pytest.raises(ValueError, match="multiple of block_size"):
+        chunk(tpaged.init_paged_cache(tc, page, 2), al.tables[0],
+              np.zeros((1, 24), np.int32), 3, 0, 0)
+
+
+def _random_kv(cfg, rows, true_len, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (cfg.n_layers, rows, cfg.n_kv_heads, cfg.head_dim)
+    k, v = (rng.standard_normal(shape).astype(np.float32) for _ in "kv")
+    k[:, true_len:] = 0
+    v[:, true_len:] = 0
+    if dtype == "bf16":
+        import ml_dtypes
+
+        k, v = k.astype(ml_dtypes.bfloat16), v.astype(ml_dtypes.bfloat16)
+    return k, v
+
+
+def _as_numpy(cache, j):
+    if j:
+        return {key: np.asarray(t) for key, t in cache.items()}
+    from ray_tpu_torch.models.convert import host_array
+
+    return {key: host_array(t) for key, t in cache.items()}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "slot"])
+def test_inject_matches_jax(weights, paged, dtype):
+    """Host KV (rows past true_len zero; bf16 as ml_dtypes arrays) injected
+    into slot 1: both packages' caches are the same bits, blocks past
+    true_len going to the null block only."""
+    jc, tc, _, _ = weights[dtype]
+    true_len = 37
+    k, v = _random_kv(jc, 64, true_len, dtype)
+    out = []
+    for j in (True, False):
+        mod_p, mod_d = (jpaged, jdecoding) if j else (tpaged, tdecoding)
+        cfg = jc if j else tc
+        if paged:
+            page, al = _pool_setup(mod_p)
+            al.ensure(1, true_len)
+            cache = mod_p.init_paged_cache(cfg, page, 2)
+            cache = mod_p.make_paged_inject(cfg, page)(
+                cache, al.tables[1], k, v, true_len, 1)
+        else:
+            cache = mod_d.init_cache(cfg, 2, max_seq=128)
+            args = (jnp.asarray(k), jnp.asarray(v)) if j else (k, v)
+            cache = mod_d.make_inject(cfg)(cache, *args, true_len, 1)
+        out.append(_as_numpy(cache, j))
+    want, got = out
+    for key in ("k", "v", "length"):
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key])
+    assert got["length"][1] == true_len
+    if paged:
+        page, al = _pool_setup(tpaged)
+        with pytest.raises(ValueError, match="multiple of block_size"):
+            tpaged.make_paged_inject(tc, page)(
+                tpaged.init_paged_cache(tc, page, 2), al.tables[0],
+                k[:, :40], v[:, :40], 37, 0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_extract_kv_and_block_copy_match_jax(weights, dtype):
+    """The same random pool in both packages: ``make_block_copy`` gives
+    the same pool, and ``extract_kv`` of a slot over fragmented blocks the
+    same host arrays, in the same dtype (bf16 as ml_dtypes.bfloat16)."""
+    from ray_tpu_torch.models.convert import tensor_from_host
+
+    jc, tc, _, _ = weights[dtype]
+    rng = np.random.default_rng(1)
+    shape = (jc.n_layers, 17, 16, jc.n_kv_heads, jc.head_dim)
+    pools = [rng.standard_normal(shape).astype(np.float32) for _ in "kv"]
+    if dtype == "bf16":
+        import ml_dtypes
+
+        pools = [p.astype(ml_dtypes.bfloat16) for p in pools]
+    out = []
+    for j in (True, False):
+        mod_p = jpaged if j else tpaged
+        cfg = jc if j else tc
+        page, al = _pool_setup(mod_p)
+        al.ensure(1, 29)
+        to = jnp.asarray if j else tensor_from_host
+        cache = {"k": to(pools[0]), "v": to(pools[1]),
+                 "length": to(np.zeros(2, np.int32))}
+        cache = mod_p.make_block_copy(cfg, page)(cache, 3, 5)
+        k, v = mod_p.extract_kv(cache, al, 1, 29)
+        out.append((k, v, _as_numpy(cache, j)))
+    (jk, jv, jcache), (tk, tv, tcache) = out
+    for got, want in ((tk, jk), (tv, jv), (tcache["k"], jcache["k"]),
+                      (tcache["v"], jcache["v"])):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    assert tk.shape == (tc.n_layers, 29, tc.n_kv_heads, tc.head_dim)
