@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: the quickest proof that
-the port builds, agrees with itself on the CPU, serves Llama-3-8B and
-trains the 1B Llama.
+the port builds, agrees with itself on the CPU, serves Llama-3-8B (also
+speculatively, with a 1B draft) and trains the 1B Llama.
 
     python3 chip_smoke.py
 
@@ -14,8 +14,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      version at the serving shapes, in bf16 and f32, with edge lengths
      (1, a block, a non-multiple, full, stale full+1, 0) and shuffled
      block tables, the slot kernel also at its split boundaries (127, 128,
-     129 beside 1, 64, 2048, 2049, 0), and bit for bit equal to itself in
-     a second run;
+     129 beside 1, 64, 2048, 2049, 0), and at the 1b draft's head dim 64
+     at those lengths, each bit for bit equal to itself in a second run;
      times of kernel, plain version and the library yardstick
      (F.scaled_dot_product_attention, timed here only; kernel and library
      from a CUDA graph of 20 calls, since the wrapper's host time exceeds
@@ -23,8 +23,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      3.35 TB/s, or operations over the peak rate);
   4. debug engine on the card (f32: paged with preemption, slot, paged
      with chunked prefill and the radix prefix cache, slot with chunked
-     prefill, and a PD handoff from a paged engine into a paged and a slot
-     engine) gives the same greedy tokens as the same engine on the CPU;
+     prefill, a PD handoff from a paged engine into a paged and a slot
+     engine, and slot engines speculating with ngram, a draft of the same
+     weights (k=4) and one of other weights (k=3)) gives the same greedy
+     tokens as the same engine on the CPU, and the same spec_* stats;
   5. the 8b configuration served on the card through LLMEngine, paged then
      slot, from random weights: every output complete, logits finite, and
      each kernel launched once per layer per decode step;
@@ -38,6 +40,18 @@ Phases (any failure exits non-zero, and no result line is printed):
      invariants, TTFT of hits and of the cold request; (d) PD: a paged
      engine's extracted KV submitted to a fresh paged and a fresh slot
      engine gives the source's tokens; extract and inject ms;
+  5c. speculative decoding at 8b on the same weights: (a) the batched
+     verify of a slot's next five greedy tokens (at a 1500-token prompt)
+     and of a window ending at max_seq 2048 with padding past it, against
+     plain decode steps, logits and K/V rows (held in f32 on the weights
+     cast up; bf16 reported beside the floor of K4 against its plain
+     version), and the KV ingest's rows equal to the verify's bits; (b) phase 5's requests on 4 slots with
+     ngram (k=4), a draft that is the target (k=4) and the 1b draft (k=4,
+     full width and depth): complete outputs, finite logits, the drafts'
+     proposals made (ngram's reported), and K4 launched once per layer per
+     plain target step and per draft step; acceptance, tokens/s, verify and draft-step ms, and
+     where the tokens leave phase 5's (reported); (c) ngram at temperature
+     0.8: two engines of one seed give the same tokens;
   6. flash attention: the forward (K1; bf16: flash_fwd_kernel, f32:
      flash_fwd_f32_kernel) and the backward (bf16: the one kernel
      flash_bwd_kernel; f32: K2a dq and K2b dk/dv) against their
@@ -182,11 +196,9 @@ def kernel_checks(device, B=8, H=32, KV=8, D=128, bs=64, MBS=32, S=2048,
         nblk = min(-(-n // bs), MBS)
         tables[b, :nblk] = perm[b * MBS:b * MBS + nblk]  # shuffled, sparse
     lengths = torch.tensor(lens, dtype=torch.int32, device=device)
-    split_lengths = torch.tensor(split_lens, dtype=torch.int32, device=device)
     scale = D ** -0.5
     paged_rows = sum(min(n, cap) for n in lens)
-    slot_rows = sum(min(n, S) for n in lens)
-    out = {"paged": {}, "slot": {}, "lengths": lens,
+    out = {"paged": {}, "slot": {}, "slot_d64": {}, "lengths": lens,
            "slot_split_lengths": split_lens}
 
     def rand(*shape):
@@ -203,6 +215,45 @@ def kernel_checks(device, B=8, H=32, KV=8, D=128, bs=64, MBS=32, S=2048,
                 "equal_runs": torch.equal(got, again),
                 "finite": bool(torch.isfinite(got).all()),
                 "zero_slot_max": got[lens_.index(0)].abs().max().item()}
+
+    def slot_record(csets, cases):
+        """K4 against its plain version on ``csets[i]`` at the lengths
+        ``cases[i]``; timed, with its library call and bound, over every
+        input copy at the lengths ``cases[0]``."""
+        runs = [compare(decode_attention, decode_attention_reference,
+                        (*csets[i], torch.tensor(c, dtype=torch.int32,
+                                                 device=device)), c)
+                for i, c in enumerate(cases)]
+        rec = {"max_abs_err": max(r["max_abs_err"] for r in runs),
+               "equal_runs": all(r["equal_runs"] for r in runs),
+               "finite": all(r["finite"] for r in runs),
+               "zero_slot_max": max(r["zero_slot_max"] for r in runs)}
+        if len(runs) > 1:
+            rec["split_lengths_max_abs_err"] = runs[1]["max_abs_err"]
+        q0, k0 = csets[0][0], csets[0][1]
+        B_, S_, KV_, D_ = k0.shape
+        lens_t = torch.tensor(cases[0], dtype=torch.int32, device=device)
+        smask = (torch.arange(S_, device=device)[None, :]
+                 < lens_t[:, None])[:, None, None, :]
+        sc = D_ ** -0.5
+        rec.update({
+            "shape": [B_, q0.shape[2], KV_, D_, S_],
+            "tolerance": TOL[str(q0.dtype).split(".")[1]],
+            "ms": time_ms([lambda s=s: decode_attention(
+                *s, lens_t, scale=sc) for s in csets], graph=True),
+            "plain_ms": time_ms([lambda s=s: decode_attention_reference(
+                *s, lens_t, scale=sc) for s in csets]),
+            "library_ms": time_ms([lambda s=s: F.scaled_dot_product_attention(
+                s[0].transpose(1, 2), s[1].transpose(1, 2),
+                s[2].transpose(1, 2), attn_mask=smask, scale=sc,
+                enable_gqa=True) for s in csets], graph=True)
+            if gqa else None,
+        })
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            sum(min(n, S_) for n in cases[0]), B_, q0.shape[2], KV_, D_,
+            q0.element_size(), str(q0.dtype).split(".")[1],
+            index_bytes=4 * B_)
+        return rec
 
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).split(".")[1]
@@ -236,36 +287,14 @@ def kernel_checks(device, B=8, H=32, KV=8, D=128, bs=64, MBS=32, S=2048,
 
         csets = [(q_, rand(B, S, KV, D).to(dt), rand(B, S, KV, D).to(dt))
                  for q_, _, _ in sets]
-        rec = compare(decode_attention, decode_attention_reference,
-                      (*csets[0], lengths), lens)
-        split = compare(decode_attention, decode_attention_reference,
-                        (*csets[1], split_lengths), split_lens)
-        rec = {"max_abs_err": max(rec["max_abs_err"], split["max_abs_err"]),
-               "split_lengths_max_abs_err": split["max_abs_err"],
-               "equal_runs": rec["equal_runs"] and split["equal_runs"],
-               "finite": rec["finite"] and split["finite"],
-               "zero_slot_max": max(rec["zero_slot_max"],
-                                    split["zero_slot_max"])}
-        smask = (torch.arange(S, device=device)[None, :]
-                 < lengths[:, None])[:, None, None, :]
-        rec.update({
-            "tolerance": TOL[name],
-            "ms": time_ms([lambda s=s: decode_attention(
-                *s, lengths, scale=scale) for s in csets], graph=True),
-            "plain_ms": time_ms([lambda s=s: decode_attention_reference(
-                *s, lengths, scale=scale) for s in csets]),
-            "library_ms": time_ms([lambda s=s: F.scaled_dot_product_attention(
-                s[0].transpose(1, 2), s[1].transpose(1, 2),
-                s[2].transpose(1, 2), attn_mask=smask, scale=scale,
-                enable_gqa=True) for s in csets], graph=True)
-            if gqa else None,
-        })
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            slot_rows, B, H, KV, D, csets[0][0].element_size(), name,
-            index_bytes=4 * B)
-        out["slot"][name] = rec
+        out["slot"][name] = slot_record(csets, (lens, split_lens))
         del sets, csets
-        for kind in ("paged", "slot"):
+        # K4 at the 1b draft's heads and cache (D=64), split boundaries
+        csets = [(rand(B, 1, H, 64).to(dt), rand(B, S, KV, 64).to(dt),
+                  rand(B, S, KV, 64).to(dt)) for _ in range(INPUT_COPIES)]
+        out["slot_d64"][name] = slot_record(csets, (split_lens,))
+        del csets
+        for kind in ("paged", "slot", "slot_d64"):
             r = out[kind][name]
             r["excess"] = r["max_abs_err"] / r["tolerance"]
             r["ok"] = (r["excess"] <= 1.0 and r["equal_runs"] and r["finite"]
@@ -278,7 +307,7 @@ def assert_kernels(records):
     """Each decode kernel within its tolerance of its plain version, finite,
     0 on the length-0 slot, and bit for bit equal to itself in a second
     run."""
-    for kind in ("paged", "slot"):
+    for kind in ("paged", "slot", "slot_d64"):
         for name, r in records[kind].items():
             what = f"{kind} kernel {name}"
             assert r["finite"], f"{what}: non-finite output"
@@ -350,8 +379,9 @@ def _prefilled(eng, prompt, ent, max_tokens):
 def _debug_prompts(seed=0):
     """Phase 4's prompts: six short ones (the paged case's pool of 96
     tokens preempts), four longer than a chunk of 32 beside a short one,
-    and a 40-token system prompt with five tails, the fourth diverging
-    inside a block of 16 of the second's."""
+    a 40-token system prompt with five tails, the fourth diverging inside
+    a block of 16 of the second's, and six for speculation, with n-gram
+    structure and without (tests/test_speculation.py's)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -363,7 +393,10 @@ def _debug_prompts(seed=0):
     return {"short": [[2 + i, 9, 4] for i in range(6)],
             "long": [toks(n) for n in (70, 5, 100, 40, 33)],
             "shared": [system + t for t in (toks(12), tail, toks(3),
-                                            tail[:9] + toks(20), toks(25))]}
+                                            tail[:9] + toks(20), toks(25))],
+            "spec": [[3, 4, 5, 6, 3, 4, 5, 6, 3, 4], [11, 23, 7, 91, 2, 57],
+                     [9] * 8, [100, 2, 3], [42, 17, 42, 17, 42, 17, 42],
+                     [7]]}
 
 
 DEBUG_CASES = {  # name: engine keywords, prompts, max_tokens, sequential
@@ -374,13 +407,20 @@ DEBUG_CASES = {  # name: engine keywords, prompts, max_tokens, sequential
                                prefix_cache="radix"), "shared", 12, True),
     "slot_chunk": (dict(kv_cache="slot", prefill_chunk=32), "long", 12,
                    False),
+    # speculation; draft: (weights, k), the target's or another seed's
+    "slot_ngram": (dict(kv_cache="slot", speculation="ngram"), "spec", 12,
+                   True),
+    "slot_draft_same": (dict(kv_cache="slot", draft=("same", 4)), "spec",
+                        12, True),
+    "slot_draft_other": (dict(kv_cache="slot", draft=("other", 3)), "spec",
+                         12, True),
 }
 
 
 def debug_engine_check(device, case, seed=0):
     """The f32 debug engine on ``device`` and on the CPU, same weights:
     greedy tokens must be identical (and, for the sequential radix case,
-    the prefix cache's counters)."""
+    the prefix cache's counters; for speculation, the ``spec_*`` stats)."""
     import torch
 
     from ray_tpu_torch.models import llama
@@ -390,6 +430,13 @@ def debug_engine_check(device, case, seed=0):
     params = llama.init_params(cfg, torch.Generator().manual_seed(seed),
                                "cpu")
     kw, which, max_tokens, sequential = DEBUG_CASES[case]
+    kw = dict(kw)
+    if "draft" in kw:
+        weights, k = kw.pop("draft")
+        draft = params if weights == "same" else llama.init_params(
+            cfg, torch.Generator().manual_seed(seed + 7), "cpu")
+        kw["speculation"] = {"method": "draft", "k": k,
+                             "draft_config": cfg, "draft_params": draft}
     prompts = _debug_prompts(seed)[which]
     res = {}
     for dev in (device, "cpu"):
@@ -422,6 +469,11 @@ def debug_engine_check(device, case, seed=0):
         assert pc == cpu_st["prefix_cache"], (pc, cpu_st["prefix_cache"])
         assert pc["hits"] == len(prompts) - 1 and pc["cow_hits"] >= 1, pc
         out["prefix_cache"] = pc
+    if "speculation" in kw:
+        spec = {key: v for key, v in st.items() if key.startswith("spec")}
+        assert spec == {key: cpu_st[key] for key in spec}, (spec, cpu_st)
+        assert spec["spec_proposed"] > 0, spec
+        out["spec"] = spec
     return out
 
 
@@ -471,12 +523,16 @@ def assert_decode_launches(res, kv_cache, cfg):
     assert res["launches"][other] == 0, res["launches"]
 
 
+def mean_ms(times):
+    return 1e3 * sum(times) / len(times) if times else None
+
+
 def serve_check(params, cfg, kv_cache, prompts, max_tokens, num_slots=4,
                 max_seq=2048, device=None, **engine_kw):
     """Serve ``prompts`` through LLMEngine on the card with each kernel's
     launch count read around the run; checks every output's length and
-    that every logits tensor (prefill, prefill chunk, decode) was
-    finite."""
+    that every logits tensor (prefill, prefill chunk, decode, and with
+    speculation the verify and the draft's steps) was finite."""
     import torch
 
     from ray_tpu_torch.ops.decode_attention import decode_attention
@@ -503,6 +559,12 @@ def serve_check(params, cfg, kv_cache, prompts, max_tokens, num_slots=4,
     eng._prefill = watch(eng._prefill, prefill_s)
     if eng._chunk_prefill is not None:
         eng._chunk_prefill = watch(eng._chunk_prefill, chunk_s)
+    verify_s, draft_s = [], []
+    prop = eng._proposer
+    if prop is not None:
+        eng._spec_verify = watch(eng._spec_verify, verify_s)
+        if hasattr(prop, "_decode"):
+            prop._decode = watch(prop._decode, draft_s)
     try:
         paged_decode_attention.launches = 0
         decode_attention.launches = 0
@@ -510,6 +572,8 @@ def serve_check(params, cfg, kv_cache, prompts, max_tokens, num_slots=4,
         launches = {"paged_decode_attention": paged_decode_attention.launches,
                     "decode_attention": decode_attention.launches}
         st = eng.stats()
+        steps = {"plain_steps": eng._plain_steps,
+                 "verify_steps": eng._verify_steps}
     finally:
         eng.shutdown()
         del eng
@@ -519,19 +583,23 @@ def serve_check(params, cfg, kv_cache, prompts, max_tokens, num_slots=4,
     assert finite and all(finite), "non-finite logits"
     tokens = sum(len(o) for o in outs.values())
     ttfts = sorted(ttft.values())
+    spec = {}
+    if prop is not None:
+        spec = {**{key: v for key, v in st.items() if key.startswith("spec")},
+                **steps, "draft_steps": st.get("spec_draft_steps", 0),
+                "verify_ms_mean": mean_ms(verify_s),
+                "draft_step_ms_mean": mean_ms(draft_s)}
     return {"kv_cache": kv_cache, "requests": len(prompts),
             "prompt_tokens": [len(p) for p in prompts],
             "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
             "ttft_p50_ms": 1e3 * ttfts[len(ttfts) // 2],
             "ttft_max_ms": 1e3 * ttfts[-1],
             "decode_steps": st["steps"],
-            "decode_step_ms_mean": 1e3 * sum(decode_s) / len(decode_s),
-            "prefill_ms_mean": (1e3 * sum(prefill_s) / len(prefill_s)
-                                if prefill_s else None),
+            "decode_step_ms_mean": mean_ms(decode_s),
+            "prefill_ms_mean": mean_ms(prefill_s),
             "prefill_chunks_run": st["prefill_chunks_run"],
-            "chunk_ms_mean": (1e3 * sum(chunk_s) / len(chunk_s)
-                              if chunk_s else None),
-            "preemptions": st.get("preemptions"),
+            "chunk_ms_mean": mean_ms(chunk_s),
+            "preemptions": st.get("preemptions"), **spec,
             "launches": launches, "outputs": [outs[i]
                                               for i in range(len(prompts))]}
 
@@ -745,6 +813,177 @@ def pd_check(params, cfg, prompt, max_tokens=32, device=None):
             "extract_ms": extract_ms[0],
             "inject_ms": {k: v[0] for k, v in inject_ms.items()},
             "identical": True}
+
+
+# ------------------------------------------------------------- phase 5c
+
+def verify_layer_check(params, cfg, plens=(1500, 2045), C=5, S=2048, seed=3,
+                       gate=True):
+    """At full width and depth, a slot cache of two slots and ``S`` rows:
+    slot 0 at a 1500-token prompt, slot 1 at 2045. From the prefilled
+    cache, plain decode steps feed each slot its next greedy tokens one
+    at a time (five for slot 0; three for slot 1, up to row S-1); the
+    verify of the same windows (slot 1's padded past S) from a copy of
+    the prefilled cache gives each decode step's logits row and K/V rows
+    within KV_ROW_RTOL of the row's norm (checked with ``gate``), every
+    other row of the slots bit for bit, and the ingest the verify's bits.
+
+    Without ``gate`` (bf16) the excess is reported beside its floor: the
+    same decode steps, fed the same tokens, with K4's plain version in
+    place of K4. The two agree within their tolerance each call (phase
+    3), and through 32 layers of random weights that difference of a
+    bf16 rounding grows as far as the verify's does."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import decoding, llama
+    from ray_tpu_torch.ops.decode_attention import decode_attention_reference
+
+    device = params["embed"].device
+    head = llama.head_f32(params, cfg)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in plens]
+    B = len(plens)
+    start = decoding.init_cache(cfg, B, S, device=device)
+    prefill = decoding.make_prefill(params, cfg, head=head)
+    first = []
+    for slot, p in enumerate(prompts):
+        buf = np.zeros((1, min(decoding.pad_to_bucket(len(p)), S)), np.int32)
+        buf[0, :len(p)] = p
+        start, lg = prefill(start, buf, len(p), slot)
+        first.append(int(lg.argmax()))
+    nwin = [min(C, S - n) for n in plens]
+    step = decoding.make_decode_step(params, cfg, head=head)
+    step_ms = []
+
+    def decode_steps(feed=None):
+        """Decode steps from a copy of the prefilled cache, each slot fed
+        its greedy tokens (or ``feed``'s): the cache, each slot's logits
+        rows and its tokens."""
+        cache = {k: v.clone() for k, v in start.items()}
+        toks = [list(t) for t in feed] if feed else [[t] for t in first]
+        rows = [[] for _ in plens]
+        for i in range(max(nwin)):
+            active = np.array([i < n for n in nwin])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cache, lg = step(cache, np.array(
+                [t_[min(i, len(t_) - 1)] for t_ in toks], np.int32), active)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            for b in range(B):
+                if active[b]:
+                    rows[b].append(lg[b])
+                    if not feed:
+                        toks[b].append(int(lg[b].argmax()))
+        return cache, [torch.stack(r) for r in rows], toks
+
+    cache, rows, toks = decode_steps()
+    win = np.zeros((B, C), np.int32)
+    for b in range(B):
+        win[b, :nwin[b]] = toks[b][:nwin[b]]
+    lens, starts = np.array(nwin, np.int32), np.array(plens, np.int32)
+    ingested = decoding.make_kv_ingest(params, cfg)(
+        {k: v.clone() for k, v in start.items()}, win, lens, starts)
+    verify = decoding.make_batched_spec_verify(params, cfg, head=head)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got, logits = verify({k: v.clone() for k, v in start.items()}, win, lens,
+                         starts)
+    torch.cuda.synchronize()
+    verify_ms = 1e3 * (time.perf_counter() - t)
+    out = {"dtype": str(cfg.dtype), "prompt_tokens": list(plens),
+           "window": nwin, "verify_ms": verify_ms, "decode_step_ms": step_ms,
+           "logits_finite": bool(torch.isfinite(logits).all()),
+           "lengths": got["length"].tolist(),
+           "ingest_equals_verify": all(torch.equal(ingested[n], got[n])
+                                       for n in ("k", "v", "length"))}
+    del ingested
+
+    def excess(prefix, got_rows, got_cache, want_rows, want_cache):
+        for b in range(B):
+            out[f"{prefix}slot{b}_logits_excess"] = row_excess(
+                got_rows[b], want_rows[b])
+            w = slice(plens[b], plens[b] + nwin[b])
+            for n in ("k", "v"):
+                out[f"{prefix}slot{b}_{n}_excess"] = row_excess(
+                    got_cache[n][:, b, w], want_cache[n][:, b, w])
+
+    excess("", [logits[b, :nwin[b]] for b in range(B)], got, rows, cache)
+    for b in range(B):
+        stop = plens[b] + nwin[b]
+        out[f"slot{b}_other_rows_equal"] = all(
+            torch.equal(got[n][:, b, :plens[b]], cache[n][:, b, :plens[b]])
+            and torch.equal(got[n][:, b, stop:], cache[n][:, b, stop:])
+            for n in ("k", "v"))
+    del got
+    if not gate:
+        orig = decoding._attend_cached
+        decoding._attend_cached = \
+            lambda q, k, v, lengths, scale: decode_attention_reference(
+                q, k, v, lengths, scale=scale)
+        try:
+            plain_cache, plain_rows, _ = decode_steps(feed=toks)
+        finally:
+            decoding._attend_cached = orig
+        excess("floor_", plain_rows, plain_cache, rows, cache)
+        del plain_cache
+    del cache, start
+    torch.cuda.empty_cache()
+    assert out["logits_finite"], out
+    assert out["lengths"] == [n + w for n, w in zip(plens, nwin)], out
+    assert out["lengths"][-1] == S, out
+    assert out["ingest_equals_verify"], "ingest and verify rows differ"
+    assert all(out[f"slot{b}_other_rows_equal"] for b in range(B)), out
+    bad = {k: v for k, v in out.items()
+           if gate and k.endswith("_excess") and not v <= 1.0}
+    assert not bad, f"verify vs decode steps: {bad}"
+    return out
+
+
+def cast_params(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: cast_params(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def assert_spec_launches(res, cfg, draft_layers):
+    """K4 launched once per layer per plain target step and per draft step
+    (the verify's attention is plain PyTorch), K3 never."""
+    want = (res["plain_steps"] * cfg.n_layers
+            + res["draft_steps"] * draft_layers)
+    assert res["launches"]["decode_attention"] == want, (res["launches"],
+                                                         want)
+    assert res["launches"]["paged_decode_attention"] == 0, res["launches"]
+
+
+def temperature_check(params, cfg, prompts, max_tokens=32, temperature=0.8):
+    """Two speculative (ngram) slot engines with the same seed, the same
+    requests one after another at ``temperature``: the same tokens."""
+    import torch
+
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    outs, stats = [], []
+    for _ in range(2):
+        eng = LLMEngine(cfg, params, num_slots=4, max_seq=2048,
+                        kv_cache="slot", speculation="ngram", seed=0)
+        try:
+            outs.append([eng.generate(p, max_tokens=max_tokens,
+                                      temperature=temperature,
+                                      timeout_s=600) for p in prompts])
+            stats.append({k: v for k, v in eng.stats().items()
+                          if k.startswith("spec") or k == "steps"})
+        finally:
+            eng.shutdown()
+            del eng
+            torch.cuda.empty_cache()
+    assert all(len(o) == max_tokens for o in outs[0]), outs[0]
+    assert all(0 <= t < cfg.vocab_size for o in outs[0] for t in o)
+    assert outs[0] == outs[1], "same seed, different tokens"
+    assert stats[0] == stats[1], stats
+    return {"temperature": temperature, "requests": len(prompts),
+            "identical": True, "stats": stats[0]}
 
 
 # ------------------------------------------------------------- phase 6
@@ -1119,7 +1358,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     log("[3] kernels vs plain versions (B=8 H=32 KV=8 D=128 bs=64 MBS=32, "
-        "S=2048)")
+        "S=2048; K4 also at D=64, the 1b draft's)")
     report["kernels"] = kernel_checks(device)
     assert_kernels(report["kernels"])
 
@@ -1185,6 +1424,56 @@ def main() -> int:
     log("[5b] 8b PD handoff: " + json.dumps(kvm["pd"]))
     report["kv_s"] = time.perf_counter() - t
     log(f"[5b] phase time {report['kv_s']:.1f} s")
+
+    # 5c. speculative decoding, same weights
+    t = time.perf_counter()
+    sp = report["spec"] = {}
+    # the rows are held in f32 (phase 5's weights cast up: rounding stays
+    # far below the allowance); bf16's excess is reported beside its floor
+    import dataclasses
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = cast_params(params, torch.float32)
+    sp["layer_f32"] = verify_layer_check(params32, cfg32)
+    del params32
+    torch.cuda.empty_cache()
+    log("[5c] 8b f32 verify vs sequential decode steps, rows within "
+        f"{KV_ROW_RTOL} of their norm: " + json.dumps(sp["layer_f32"]))
+    sp["layer_bf16"] = verify_layer_check(params, cfg, gate=False)
+    log("[5c] 8b bf16 verify vs sequential decode steps (reported), and "
+        "the floor, K4 vs its plain version in the same steps: "
+        + json.dumps(sp["layer_bf16"]))
+    draft_layers = {"ngram": 0, "self_draft": cfg.n_layers,
+                    "draft_1b": llama.CONFIGS["1b"].n_layers}
+    for name, spec in (
+            ("ngram", {"method": "ngram", "k": 4}),
+            ("self_draft", {"method": "draft", "k": 4, "draft_config": cfg,
+                            "draft_params": params}),
+            ("draft_1b", {"method": "draft", "k": 4, "draft_model": "1b"})):
+        res = serve_check(params, cfg, "slot", prompts, max_tokens=32,
+                          speculation=spec)
+        assert_spec_launches(res, cfg, draft_layers[name])
+        # a draft always proposes; the n-gram lookup only where the output
+        # repeats a bigram of its context, which the random target's
+        # greedy output may never do (then every iteration is a plain
+        # step, which the launch count above holds; phase 4 gates ngram's
+        # proposals on the card)
+        assert res["spec_proposed"] > 0 or name == "ngram", (
+            name, res["spec_proposed"])
+        assert (res["verify_steps"] > 0) == (res["spec_proposed"] > 0), res
+        # a report, not a gate: bf16 ties can flip a greedy token
+        res["first_divergence_from_plain"] = [
+            first_divergence(a, b) for a, b in
+            zip(res["outputs"], report["serve"]["slot"]["outputs"])]
+        sp[name] = res
+        log(f"[5c] 8b slot, speculation {name}: " + json.dumps(
+            {k: v for k, v in res.items() if k != "outputs"}))
+    sp["temperature"] = temperature_check(params, cfg,
+                                          [prompts[0], prompts[2]])
+    log("[5c] 8b ngram at temperature 0.8, two engines of one seed: "
+        + json.dumps(sp["temperature"]))
+    report["spec_s"] = time.perf_counter() - t
+    log(f"[5c] phase time {report['spec_s']:.1f} s")
     del params
     torch.cuda.empty_cache()
 
@@ -1220,6 +1509,13 @@ def main() -> int:
              "ray_tpu/ops/pallas/decode_attention.py:90")):
         rec = k[kind_]["bfloat16"]
         main_run = report["serve"][kind_]["launches"][src_kernel]
+        extra = {}
+        if kind_ == "slot":
+            # K4 also runs the speculative engines' plain steps and every
+            # draft step (phase 5c), each run read around itself
+            main_run += sum(report["spec"][n]["launches"][src_kernel]
+                            for n in ("ngram", "self_draft", "draft_1b"))
+            extra["d64"] = k["slot_d64"]
         lines.append({
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/csrc/decode_attention.cu",
@@ -1229,7 +1525,7 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "dtype": "bfloat16",
-            "float32": k[kind_]["float32"]})
+            "float32": k[kind_]["float32"], **extra})
     fl = report["flash"]["1b_bench"]
     # the bf16 kernels' launches come from phase 8 (1b_bench), the f32
     # kernels' from phase 7 (debug, f32), each read around its own run

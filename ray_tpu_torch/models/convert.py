@@ -95,3 +95,10 @@ def train_state_from_jax(state: Any, device=None):
             nu=params_from_jax(adam.nu, device),
             schedule_count=int(np.asarray(schedule.count))))
 
+
+def params_to(tree: Any, device) -> Any:
+    """A parameter dict with every tensor on ``device``; tensors already
+    there are the same objects (no copy)."""
+    if isinstance(tree, dict):
+        return {k: params_to(v, device) for k, v in tree.items()}
+    return tree.to(device)

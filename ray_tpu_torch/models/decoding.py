@@ -10,15 +10,19 @@ so XLA updates it in place), these steps **write in place into the
 preallocated cache tensors** and return the same dict. ``scan`` over the
 stacked layers is a Python loop over the layer index.
 
-Beside prefill and decode: the chunked prefill and KV injection (the PD
-handoff and the legacy prefix cache). Not ported yet: batched speculative
-verify, KV ingest and ``sample_token`` (ROADMAP.md, queue A item 4).
+Beside prefill and decode: the chunked prefill, KV injection (the PD
+handoff and the legacy prefix cache), the batched speculative verify and
+its KV-only sibling (per-slot token windows at per-slot offsets; the
+speculative engine's target step and the draft's catch-up), and
+``sample_token``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ray_tpu_torch.models.convert import tensor_from_host
@@ -159,19 +163,27 @@ def make_prefill(params: Params, config: LlamaConfig,
     return prefill
 
 
-def chunk_attention(q, ks, vs, allowed, scale):
-    """Attention of a prefill chunk over a slot's cached rows, as the JAX
-    package's chunked prefills compute it: q (1, C, H, D); ks, vs
-    (S, KV, D); allowed (C, S) bool. f32 scores, masked with -1e30, f32
-    softmax over all S rows; returns (1, C, H, D) in q's dtype."""
-    C, H, D = q.shape[1:]
-    KV = ks.shape[1]
-    qg = q[0].float().reshape(C, KV, H // KV, D)
-    s = torch.einsum("ckgd,skd->kgcs", qg, ks.float()) * scale
-    s = torch.where(allowed, s, torch.full((), -1e30, device=s.device))
+def window_attention(q, ks, vs, allowed, scale):
+    """Attention of per-slot token windows over each slot's cached rows,
+    as the JAX package's verify and chunked prefills compute it: q (B, C,
+    H, D); ks, vs (B, S, KV, D); allowed (B, C, S) bool. f32 scores,
+    masked with -1e30, f32 softmax over all S rows, grouped heads (KV never
+    repeated a head); returns (B, C, H, D) in q's dtype."""
+    B, C, H, D = q.shape
+    KV = ks.shape[2]
+    qg = q.float().reshape(B, C, KV, H // KV, D)
+    s = torch.einsum("bckgd,bskd->bkgcs", qg, ks.float()) * scale
+    s = torch.where(allowed[:, None, None], s,
+                    torch.full((), -1e30, device=s.device))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("kgcs,skd->ckgd", p, vs.float())
-    return out.reshape(1, C, H, D).to(q.dtype)
+    out = torch.einsum("bkgcs,bskd->bckgd", p, vs.float())
+    return out.reshape(B, C, H, D).to(q.dtype)
+
+
+def chunk_attention(q, ks, vs, allowed, scale):
+    """One slot's prefill chunk: q (1, C, H, D); ks, vs (S, KV, D);
+    allowed (C, S) bool (:func:`window_attention` of a single slot)."""
+    return window_attention(q, ks[None], vs[None], allowed[None], scale)
 
 
 def make_chunked_prefill(params: Params, config: LlamaConfig,
@@ -232,6 +244,109 @@ def make_chunked_prefill(params: Params, config: LlamaConfig,
     return chunk
 
 
+def make_batched_spec_verify(params: Params, config: LlamaConfig,
+                             head: Optional[torch.Tensor] = None):
+    """Speculative-decoding verify: score up to C candidate tokens for
+    every slot in one forward (:mod:`ray_tpu_torch.models.speculation`
+    owns the proposers and the acceptance rule).
+
+    verify(cache, tokens (B, C), true_lens (B,), start_pos (B,)) →
+        (cache, logits (B, C, vocab) f32)
+
+    B must equal the cache's slot count. Per slot, ``tokens[b,
+    :true_lens[b]]`` is the window [pending token, proposals...] written
+    at rows ``[start_pos[b], start_pos[b] + true_lens[b])``; a window of 1
+    is a plain decode step for that slot and 0 leaves the slot untouched.
+    Rejected rows sit past the accepted length the caller installs
+    afterwards, and later writes overwrite them. ``head``: the f32 output
+    head, made once by the caller (default: made here)."""
+    return _make_window_forward(params, config,
+                                head_f32(params, config) if head is None
+                                else head)
+
+
+def make_kv_ingest(params: Params, config: LlamaConfig):
+    """KV-write-only sibling of :func:`make_batched_spec_verify`: writes
+    exactly the same cache rows but skips the final norm and the head (the
+    draft's catch-up after an all-accepted round needs only the rows).
+
+    ingest(cache, tokens (B, C), true_lens (B,), start_pos (B,)) → cache
+    """
+    call = _make_window_forward(params, config, None)
+
+    def ingest(cache: Cache, tokens, true_lens, start_pos):
+        return call(cache, tokens, true_lens, start_pos)[0]
+
+    return ingest
+
+
+def _host_ints(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.cpu()
+    return np.asarray(a, np.int64).reshape(-1)
+
+
+def _make_window_forward(params: Params, config: LlamaConfig,
+                         head: Optional[torch.Tensor]):
+    """Makes the verify (``head`` given: logits) and the ingest
+    (``head`` None: no logits). Writes exactly the valid rows of each
+    window, in place: the JAX step scatters every padded row at unclamped
+    positions and XLA drops those past S, where torch would fault, so the
+    rows are selected on the host once a call (ROADMAP.md, C). In-range
+    padding rows keep their contents."""
+    c = config
+    dev = params["embed"].device
+    cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
+                                device=dev)
+    scale = c.head_dim ** -0.5
+
+    def window(cache: Cache, tokens, true_lens, start_pos):
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        B, C = tokens.shape
+        S = cache["k"].shape[2]
+        if B != cache["k"].shape[1]:
+            raise ValueError(f"{B} windows for a cache of "
+                             f"{cache['k'].shape[1]} slots")
+        lens, starts = _host_ints(true_lens), _host_ints(start_pos)
+        rel = np.arange(C)
+        pos = starts[:, None] + rel[None, :]                   # (B, C)
+        wb, wc = np.nonzero((rel[None, :] < lens[:, None]) & (pos < S))
+        b_idx = torch.as_tensor(wb, device=dev)
+        c_idx = torch.as_tensor(wc, device=dev)
+        r_idx = torch.as_tensor(pos[wb, wc], device=dev)
+        positions = torch.as_tensor(pos, device=dev)
+        rope_pos = positions.clamp(max=cos.shape[0] - 1)
+        allowed = (torch.arange(S, device=dev)[None, None, :]
+                   <= positions[:, :, None])                  # (B, C, S)
+        x = params["embed"].to(c.dtype)[tokens]               # (B, C, E)
+        for i in range(c.n_layers):
+            layer = layer_params(params, i)
+            h = rmsnorm(x, layer["attn_norm"], c.norm_eps)
+            q, k, v = _qkv(h, layer)
+            q = apply_rope(q, cos, sin, rope_pos)
+            k = apply_rope(k, cos, sin, rope_pos)
+            kc, vc = cache["k"][i], cache["v"][i]     # (slots, S, KV, D)
+            kc[b_idx, r_idx] = k[b_idx, c_idx].to(kc.dtype)
+            vc[b_idx, r_idx] = v[b_idx, c_idx].to(vc.dtype)
+            out = window_attention(q, kc, vc, allowed, scale)
+            x = x + _attn_out(out, layer)
+            x = x + _mlp(rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer)
+        logits = None
+        if head is not None:
+            x = rmsnorm(x, params["final_norm"], c.norm_eps)
+            logits = (x.float().reshape(B * C, -1) @ head).reshape(B, C, -1)
+        # provisional: start + window for touched slots; the engine
+        # installs the accepted lengths right after
+        new_len = np.where(lens > 0, starts + lens, 0)
+        touched = torch.as_tensor(lens > 0, device=dev)
+        cache["length"].copy_(torch.where(
+            touched, torch.as_tensor(new_len, device=dev).to(torch.int32),
+            cache["length"]))
+        return cache, logits
+
+    return window
+
+
 def make_inject(config: LlamaConfig):
     """Build the KV injection: write an externally computed prompt KV
     (from a prefill replica or a prefix cache) into one slot, in place.
@@ -263,3 +378,28 @@ def pad_to_bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
         if n <= b:
             return b
     return ((n + 511) // 512) * 512
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    max_tokens: int = 64
+    temperature: float = 0.0        # 0 → greedy
+    eos_token: Optional[int] = None
+
+
+def sample_token(logits: torch.Tensor, temperature: float,
+                 generator: Optional[torch.Generator]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Generator]]:
+    """(..., vocab) logits → (...) int32 token ids and the generator.
+    Temperature 0 is the argmax (the first of tied maxima, as
+    ``jnp.argmax``); above 0, one categorical draw a row from
+    softmax(logits / temperature) with ``generator``, which lives on the
+    logits' device and advances. ``jax.random`` streams cannot be
+    reproduced here: the draws follow the same distribution, not the JAX
+    package's tokens."""
+    if temperature <= 0.0:
+        return logits.argmax(-1).to(torch.int32), generator
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    tok = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                            generator=generator)
+    return tok.reshape(probs.shape[:-1]).to(torch.int32), generator

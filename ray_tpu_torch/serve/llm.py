@@ -16,7 +16,13 @@ blocks between requests through the radix tree of
 :mod:`ray_tpu_torch.models.prefix_cache` and prefills only a hit's
 uncached suffix; ``"legacy"`` is the exact-match full-prompt host cache,
 re-injected on a hit. ``submit_prefilled`` admits a request whose prompt
-KV a prefill replica computed (PD disaggregation).
+KV a prefill replica computed (PD disaggregation). Speculative decoding
+(``speculation``, slot cache only): a proposer of
+:mod:`ray_tpu_torch.models.speculation` (``"ngram"`` prompt lookup, or a
+small ``"draft"`` model in lockstep) guesses up to ``k`` tokens a slot, one
+batched verify forward scores every slot's window, and the acceptance rule
+keeps a prefix and a bonus token; when no slot has a proposal the engine
+runs the plain decode step.
 
 Numerics: decode and prefill logits are f32 × f32 against one f32 copy of
 the output head made when the engine is built (2.1 GB at 8b) — not a cast
@@ -25,9 +31,8 @@ per step. On the card the engine turns TF32 off for matmuls and cuDNN
 ``torch.backends.cudnn.allow_tf32`` are process-wide settings), so f32
 products are full f32 as in the JAX package.
 
-Not ported yet, and refused with ``NotImplementedError``: speculation,
-the Serve proxy's ``Request`` bodies and ``LLMServer.stream`` (ROADMAP.md,
-queue A).
+Not ported yet, and refused with ``NotImplementedError``: the Serve
+proxy's ``Request`` bodies and ``LLMServer.stream`` (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -47,9 +52,9 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.models.convert import params_to
 
 _ROADMAP = {
-    "speculation": "queue A item 4, speculative decoding",
     "serve": "queue A item 5, LLMServer.stream and the Serve proxy",
 }
 
@@ -157,8 +162,15 @@ class LLMEngine:
                 raise ValueError(
                     f"prefill_chunk={prefill_chunk} must be a multiple of "
                     f"kv_block_size={kv_block_size}")
+        spec_cfg = None
         if speculation is not None:
-            raise _not_ported("speculation", "speculation")
+            from ray_tpu_torch.models.speculation import SpeculationConfig
+
+            spec_cfg = SpeculationConfig.parse(speculation, default_k=spec_k)
+            if kv_cache != "slot":
+                raise ValueError(
+                    "speculation currently requires kv_cache='slot'")
+            speculation, spec_k = spec_cfg.method, spec_cfg.k
         mode = prefix_cache
         if mode is None:
             mode = os.environ.get("RT_prefix_cache")
@@ -182,10 +194,11 @@ class LLMEngine:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.config = config or llama.CONFIGS[model]
+        given = params
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = llama.init_params(self.config, gen, self.device)
-        self.params = _to_device(params, self.device)
+        self.params = params_to(params, self.device)
         self.num_slots = num_slots
         self.max_seq = max_seq or self.config.max_seq
         self.kv_cache = kv_cache
@@ -237,6 +250,30 @@ class LLMEngine:
         # slots, so a long prompt does not stall everyone's TTFT.
         self._chunk_prefill = chunked() if prefill_chunk is not None \
             else None
+        # Speculative decoding: the proposer guesses up to k tokens a slot,
+        # one batched verify scores every slot's window (1-token windows
+        # for slots without proposals), greedy acceptance only skips
+        # compute, and temperature > 0 keeps the target distribution by
+        # residual resampling.
+        self._proposer = None
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._plain_steps = 0          # decode-step calls (K4 on the card)
+        self._verify_steps = 0         # verify calls (plain f32 attention)
+        if spec_cfg is not None:
+            from ray_tpu_torch.models.decoding import make_batched_spec_verify
+            from ray_tpu_torch.models.speculation import make_length_installer
+
+            if given is not None and spec_cfg.draft_params is given:
+                # a draft of the target's own weights shares its tensors
+                spec_cfg = dataclasses.replace(spec_cfg,
+                                               draft_params=self.params)
+            self._spec_verify = make_batched_spec_verify(
+                self.params, self.config, head=head)
+            self._spec_fix_len = make_length_installer()
+            self._proposer = spec_cfg.build_proposer(
+                self.config, num_slots=num_slots, max_seq=self.max_seq,
+                device=self.device)
         # slot -> {"req", "tokens", "pos"} for in-progress chunked prefills
         self._prefilling: Dict[int, dict] = {}
         self._chunks_run = 0
@@ -419,11 +456,14 @@ class LLMEngine:
                "prefix_misses": self._prefix_misses,
                "prefill_chunks_run": self._chunks_run,
                "prefilling_slots": len(self._prefilling),
-               # speculation is not ported: the reference's off values
-               "spec_proposed": 0,
-               "spec_accepted": 0,
-               "spec_acceptance_rate": None,
+               "spec_proposed": self._spec_proposed,
+               "spec_accepted": self._spec_accepted,
+               "spec_acceptance_rate": (
+                   round(self._spec_accepted / self._spec_proposed, 4)
+                   if self._spec_proposed else None),
                "speculation": self.speculation}
+        if self._proposer is not None:
+            out.update(self._proposer.stats())
         if self.kv_cache == "paged":
             out.update(
                 preemptions=self._preemptions,
@@ -735,7 +775,106 @@ class LLMEngine:
             self._slot_len[slot] = plen
             self._admit_counter += 1
             self._admit_seq[slot] = self._admit_counter
+            if self._proposer is not None:
+                self._proposer.admit(slot, full_prompt)
             self._maybe_finish(slot)
+
+    def _spec_decode_step(self, active: np.ndarray) -> bool:
+        """One speculative iteration for all active slots: collect per-slot
+        proposals, score every window in one batched verify, apply the
+        acceptance rule per slot, and install the accepted lengths (the
+        target's, then the proposer's rollback). Slots with no proposal
+        (lookup miss, per-request opt-out, window out of room) ride the
+        same forward as 1-token windows.
+
+        Returns False without touching the cache when no slot has any
+        proposal: every window would be 1 token, and the caller's plain
+        decode step gives the same result for less. (A draft proposer with
+        no proposals ran no decode step, so nothing needs rolling back.)"""
+        from ray_tpu_torch.models.speculation import (accept_greedy,
+                                                      accept_speculative)
+
+        C = self.spec_k + 1
+        infos: Dict[int, dict] = {}
+        for slot in range(self.num_slots):
+            if not active[slot]:
+                continue
+            req = self._slots[slot]
+            start = int(self._slot_len[slot])
+            k_req = self.spec_k
+            if req.spec is not None:
+                if not req.spec["enabled"]:
+                    k_req = 0
+                elif req.spec["k"] is not None:
+                    k_req = min(req.spec["k"], self.spec_k)
+            room = req.max_tokens - len(req.output)
+            k_eff = max(0, min(k_req, room - 1, self.max_seq - start - 1))
+            infos[slot] = {"seq": req.prompt + req.output,
+                           "target_len": start, "k": k_eff}
+        proposals = self._proposer.propose(infos) if infos else {}
+        if not any(proposals.get(slot) for slot in infos):
+            return False
+        buf = np.zeros((self.num_slots, C), np.int32)
+        true_lens = np.zeros(self.num_slots, np.int32)
+        starts = np.zeros(self.num_slots, np.int32)
+        for slot, info in infos.items():
+            props = proposals.get(slot) or []
+            buf[slot, 0] = self._last_token[slot]
+            buf[slot, 1:1 + len(props)] = props
+            true_lens[slot] = 1 + len(props)
+            starts[slot] = info["target_len"]
+        self._cache, all_logits = self._spec_verify(self._cache, buf,
+                                                    true_lens, starts)
+        self._verify_steps += 1
+        # greedy slots need only the (B, C) argmax ids, taken on the
+        # device: the full logits leave it only when some slot samples
+        greedy_np = all_logits.argmax(-1).cpu().numpy()
+        need_full = any(self._slots[s].temperature > 0.0 for s in infos)
+        logits_np = all_logits.cpu().numpy() if need_full else None
+        # increment before seeding, like _sample: seeding first would reuse
+        # the stream the previous plain step sampled with
+        self._steps += 1
+        rng = np.random.default_rng(self._steps)
+        accepted_map: Dict[int, int] = {}
+        touched = np.zeros(self.num_slots, bool)
+        new_lens = np.zeros(self.num_slots, np.int32)
+        for slot in sorted(infos):
+            req = self._slots[slot]
+            props = proposals.get(slot) or []
+            if req.temperature <= 0.0:
+                emitted, accepted = accept_greedy(
+                    greedy_np[slot, :1 + len(props)], props)
+            else:
+                emitted, accepted = accept_speculative(
+                    logits_np[slot, :1 + len(props)], props,
+                    req.temperature, rng)
+            self._spec_proposed += len(props)
+            self._spec_accepted += accepted
+            accepted_map[slot] = accepted
+            # max_tokens and eos inside the window
+            room = req.max_tokens - len(req.output)
+            emitted = emitted[:max(1, room)]
+            if req.eos_token is not None and req.eos_token in emitted:
+                emitted = emitted[:emitted.index(req.eos_token) + 1]
+            req.output.extend(emitted)
+            self._last_token[slot] = emitted[-1]
+            # the last emitted token is pending (not cached yet): the
+            # accepted length is start + len(emitted); rejected rows past
+            # it are invisible and get overwritten later
+            new_len = int(starts[slot]) + len(emitted)
+            self._slot_len[slot] = new_len
+            touched[slot] = True
+            new_lens[slot] = new_len
+            self._tokens_generated += len(emitted)
+        if touched.any():
+            dev = self._cache["length"].device
+            self._cache["length"] = self._spec_fix_len(
+                self._cache["length"], torch.as_tensor(new_lens, device=dev),
+                torch.as_tensor(touched, device=dev))
+        self._proposer.after_verify(accepted_map)
+        for slot in sorted(accepted_map):
+            self._maybe_finish(slot)
+        return True
 
     def _advance_chunked_prefill(self):
         """Run one chunk of the oldest in-progress chunked prefill; after
@@ -771,6 +910,8 @@ class LLMEngine:
         req.output.append(int(tok))
         self._last_token[slot] = tok
         self._slot_len[slot] = plen
+        if self._proposer is not None:
+            self._proposer.admit(slot, toks)
         self._maybe_finish(slot)
 
     def _sample(self, logits: np.ndarray, temperature: float) -> np.ndarray:
@@ -803,6 +944,8 @@ class LLMEngine:
                 self._radix_insert(req, seq, slot)
             req.done.set()
             self._slots[slot] = None
+            if self._proposer is not None:
+                self._proposer.release(slot)
             if self.kv_cache == "paged":
                 self._alloc.release(slot)
 
@@ -813,6 +956,8 @@ class LLMEngine:
         req = self._slots[slot]
         self._slots[slot] = None
         self._alloc.release(slot)
+        if self._proposer is not None:
+            self._proposer.release(slot)
         # a mid-chunked-prefill victim restarts its prefill on re-admission
         self._prefilling.pop(slot, None)
         self._waiting.appendleft(req)
@@ -898,6 +1043,11 @@ class LLMEngine:
             if not self._prefilling:
                 time.sleep(0.002)
             return
+        # speculation replaces the decode step: every active slot gets a
+        # verify window; when no slot has a proposal this iteration, the
+        # plain (cheaper) decode step below runs instead
+        if self._proposer is not None and self._spec_decode_step(active):
+            return
         if self.kv_cache == "paged":
             self._cache, logits = self._decode(
                 self._cache, self._alloc.device_tables(), self._last_token,
@@ -907,6 +1057,7 @@ class LLMEngine:
                                                active)
         logits_np = logits.cpu().numpy()
         self._steps += 1
+        self._plain_steps += 1
         for slot in range(self.num_slots):
             req = self._slots[slot]
             if req is None or slot in self._prefilling:
@@ -918,12 +1069,6 @@ class LLMEngine:
             self._slot_len[slot] += 1
             self._tokens_generated += 1
             self._maybe_finish(slot)
-
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
 
 
 class LLMServer:

@@ -148,6 +148,7 @@ SLOT_SPLIT_CASES = [  # H, KV, D, S
     (8, 2, 64, 384),                   # group 4
     (16, 2, 128, 300),                 # group 8
     (32, 8, 128, 2048),                # 8b's heads and cache: sixteen splits
+    (32, 8, 64, 2048),                 # the 1b draft's heads and cache
 ]
 
 

@@ -4,9 +4,9 @@ in both cache modes, with mid-stream admission (6 requests on 3 slots)
 and under a pool small enough to force recompute preemption, and with
 chunked prefill (mirroring tests/test_llm.py::TestChunkedPrefill). Also
 the engine surface: the reference's keywords, stats keys and prefix
-digest with every optional feature off, speculation raises
-NotImplementedError, bad prefix modes and chunk sizes ValueError as in the
-reference, and the default device is the card."""
+digest with every optional feature off, speculation on a paged cache,
+bad prefix modes and chunk sizes raise ValueError as in the reference, and
+the default device is the card."""
 
 import threading
 import time
@@ -139,10 +139,13 @@ def test_oversize_prompt_fails_cleanly(tparams):
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"speculation": "ngram", "kv_cache": "slot"}, "speculation")])
+    ({"speculation": "ngram", "kv_cache": "paged"}, "speculation")])
 def test_unported_options_raise(kw, what):
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-        LLMEngine(model="debug", device="cpu", **kw)
+    """Speculation runs on the slot cache only, in both packages: on a
+    paged cache both raise the reference's ValueError."""
+    for make in (JaxEngine, lambda **k: LLMEngine(device="cpu", **k)):
+        with pytest.raises(ValueError, match=f"{what}.*kv_cache='slot'"):
+            make(model="debug", **kw)
 
 
 @pytest.mark.parametrize("kv_cache", ["paged", "slot"])
