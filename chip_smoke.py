@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: the quickest proof that
 the port builds, agrees with itself on the CPU, serves Llama-3-8B (also
-speculatively, with a 1B draft) and trains the 1B Llama.
+speculatively, with a 1B draft) and trains the 1B Llama, a Mixtral-shaped
+MoE and ViT-B/16.
 
     python3 chip_smoke.py
 
@@ -57,7 +58,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      flash_bwd_kernel; f32: K2a dq and K2b dk/dv) against their
      plain versions, in bf16 and f32, at the 1b_bench shapes (B=8, Hq=32,
      Hkv=8, S=2048, D=64, causal), at D=128, and at a ragged S=1000 with
-     group 1, non-causal, row by row under the tolerance
+     group 1, non-causal, at ViT-B/16's (B=256, H=12, S=197, D=64,
+     non-causal) and at the debug ViT's (B=8, H=4, S=17, D=16), row by
+     row under the tolerance
      ops/flash_attention.py states, each call launching exactly the
      kernels of its dtype, K1 and the f32 backward bit for bit equal to
      themselves in a second run; times of kernel (the bf16 backward with its
@@ -73,9 +76,25 @@ Phases (any failure exits non-zero, and no result line is printed):
      at full width and depth through ray_tpu_torch.bench.run: finite,
      falling loss, and each flash kernel launched exactly as the path
      needs (K1 and the bf16 flash_bwd_kernel; no K2a, K2b);
+  8b. the f32 debug MoE and debug ViT trained 5 steps on the card and on
+     the CPU from the same weights and batch, as phase 7;
+  8c. 8x7b (the Llama-3-8B backbone with 8 experts of 14336, top-2,
+     capacity factor 1.25) at full width and MOE_LAYERS layers, batch 2 x
+     2048, 6 steps: finite, falling loss, the router's aux loss in (0.8,
+     1.5) at the first step, K1 twice and flash_bwd_kernel once per layer
+     per step; step ms, tokens/s, MFU, peak memory;
+  8d. ViT-B/16 at full size on 256 seeded images, 6 steps, the same
+     checks; images/s, MFU, peak memory;
+  8e. 1b_bench under remat_policy "dots" and "nothing" from the same
+     weights and batch, 3 steps each: the first loss equal bit for bit,
+     the parameters after the second step within max(2e-2, 1.5 x the
+     floor) of each other relative to the update (the floor: "nothing"
+     run again; bf16 dQ adds in no fixed order), the same K1 launches,
+     fewer cuBLAS launches in the backward under "dots"; step ms and peak
+     memory of each;
   9. the kernels line, then the result line.
 
-Needs one CUDA card, nvcc, and about 40 GB of device memory; no network.
+Needs one CUDA card, nvcc, and about 70 GB of device memory; no network.
 """
 
 import json
@@ -990,8 +1009,10 @@ def temperature_check(params, cfg, prompts, max_tokens=32, temperature=0.8):
 
 FLASH_CASES = [  # name, B, Hq, Hkv, S (= Sq = Skv), D, causal
     ("1b_bench", 8, 32, 8, 2048, 64, True),   # the training path's shapes
-    ("d128", 2, 32, 8, 2048, 128, True),
+    ("d128", 2, 32, 8, 2048, 128, True),      # and 8x7b's (phase 8c)
     ("ragged", 2, 8, 8, 1000, 64, False),
+    ("vit_b16", 256, 12, 12, 197, 64, False),  # phase 8d's
+    ("vit_debug", 8, 4, 4, 17, 16, False),     # phase 8b's ViT
 ]
 
 
@@ -1240,54 +1261,67 @@ def reset_flash_launches():
     fa.flash_attention_bwd.launches = {"bwd": 0, "dq": 0, "dkv": 0}
 
 
-def debug_train_check(device, steps=5, seed=0):
-    """The f32 debug model trained ``steps`` steps on the card and on the
-    CPU from the same weights and numpy batch: losses to 1e-4 relative,
-    final parameters to 1e-4 absolute, and K1 and the f32 K2a, K2b each
-    launched once per layer per step on the card (no remat)."""
-    import numpy as np
+def card_equals_cpu(device, init_params, loss_fn, batch, n_layers,
+                    steps=5):
+    """An f32 model trained ``steps`` steps on the card and on the CPU from
+    the same weights (``init_params()`` on the CPU) and numpy ``batch``:
+    losses to 1e-4 relative, final parameters to 1e-4 absolute, the CPU's
+    loss falling, and K1 and the f32 K2a, K2b each launched once per layer
+    per step on the card (no remat)."""
     import torch
 
-    from ray_tpu_torch.models import llama
     from ray_tpu_torch.models.training import (OptimizerConfig,
                                                init_train_state,
                                                make_train_step, tree_leaves,
                                                tree_map)
 
-    cfg = llama.CONFIGS["debug"]
-    params0 = llama.init_params(cfg, torch.Generator().manual_seed(seed),
-                                "cpu")
-    rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+    params0 = init_params()
     res = {}
     for dev in (device, torch.device("cpu")):
         opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=2,
                               decay_steps=20).make()
         state = init_train_state(
             lambda g: tree_map(lambda t: t.clone(), params0), opt, None, dev)
-        step = make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt)
-        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        step = make_train_step(loss_fn, opt)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         reset_flash_launches()
         losses = []
         for _ in range(steps):
-            state, m = step(state, batch)
+            state, m = step(state, b)
             losses.append(float(m["loss"]))
         res[dev.type] = (losses, [t.detach().cpu() for t in
                                   tree_leaves(state.params)],
                          flash_launches())
     (card, card_p, launches), (cpu, cpu_p, _) = res["cuda"], res["cpu"]
-    want = {"fwd": steps * cfg.n_layers, "bwd": 0,
-            "dq": steps * cfg.n_layers, "dkv": steps * cfg.n_layers}
+    want = {"fwd": steps * n_layers, "bwd": 0,
+            "dq": steps * n_layers, "dkv": steps * n_layers}
     assert launches == want, (launches, want)
     for a, b in zip(card, cpu):
-        assert abs(a - b) <= 1e-4 * abs(b), ("debug losses", card, cpu)
+        assert abs(a - b) <= 1e-4 * abs(b), ("losses", card, cpu)
     assert cpu[-1] < cpu[0], cpu
     p_err = max((a - b).abs().max().item() for a, b in zip(card_p, cpu_p))
-    assert p_err <= 1e-4, f"debug params differ by {p_err}"
+    assert p_err <= 1e-4, f"params differ by {p_err}"
     return {"steps": steps, "losses_card": card, "losses_cpu": cpu,
             "max_loss_rel_err": max(abs(a - b) / abs(b)
                                     for a, b in zip(card, cpu)),
             "max_param_abs_err": p_err, "launches": launches}
+
+
+def debug_train_check(device, steps=5, seed=0):
+    """The f32 debug Llama, card == CPU (:func:`card_equals_cpu`)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.CONFIGS["debug"]
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+    return card_equals_cpu(
+        device, lambda: llama.init_params(
+            cfg, torch.Generator().manual_seed(seed), "cpu"),
+        lambda p, b: llama.loss_fn(p, b, cfg), {"tokens": tokens},
+        cfg.n_layers, steps)
 
 
 def train_1b_check(device, steps=5):
@@ -1313,6 +1347,275 @@ def train_1b_check(device, steps=5):
     assert res["losses"][-1] < res["losses"][0], res["losses"]
     res["launches"] = launches
     return res
+
+
+# ------------------------------------------------------------- phases 8b-8e
+
+H100_BF16_PEAK = 989e12          # dense bf16 tensor-core FLOP/s (MFU)
+# 8x7b depth on one 80 GB card: 4 layers peak at 80.5 of its 85.0 GB
+# reserved by the allocator, 3 leave more than 8 GB free (PERF.md §4)
+MOE_LAYERS = 3
+CUBLAS_KEYS = ("nvjet", "gemm", "cublas", "cutlass", "xmma", "sm90_")
+
+
+def family_debug_checks(device, steps=5, seed=0):
+    """The f32 debug MoE and ViT, card == CPU (:func:`card_equals_cpu`):
+    the f32 kernels at the MoE's D=16, causal, group 2, and the ViT's
+    D=16, non-causal, S=17."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import moe, vit
+
+    rng = np.random.default_rng(seed)
+    mcfg, vcfg = moe.CONFIGS["debug"], vit.CONFIGS["debug"]
+    tokens = rng.integers(0, mcfg.base.vocab_size, (4, 64)).astype(np.int32)
+    images = rng.random((8, vcfg.image_size, vcfg.image_size,
+                         vcfg.channels)).astype(np.float32)
+    labels = rng.integers(0, vcfg.num_classes, 8).astype(np.int32)
+    return {
+        "moe": card_equals_cpu(
+            device, lambda: moe.init_params(
+                mcfg, torch.Generator().manual_seed(seed), "cpu"),
+            lambda p, b: moe.loss_fn(p, b, mcfg), {"tokens": tokens},
+            mcfg.base.n_layers, steps),
+        "vit": card_equals_cpu(
+            device, lambda: vit.init_params(
+                vcfg, torch.Generator().manual_seed(seed), "cpu"),
+            lambda p, b: vit.loss_fn(p, b, vcfg),
+            {"images": images, "labels": labels}, vcfg.n_layers, steps),
+    }
+
+
+def timed_training(device, init_fn, loss_fn, batch, n_layers, steps=6):
+    """Train ``steps`` steps of a bf16 model with remat "nothing" through
+    ``make_train_step`` (learning rate 0 at the first step, as in
+    ``bench.run``), all on ``batch``: finite losses, the last below the
+    first, and K1 launched twice per layer per step (forward and
+    recompute), ``flash_bwd_kernel`` once, the f32 K2a, K2b never. Step
+    time by the host clock over the steps after the first, each ended by a
+    synchronize; peak device memory over the run."""
+    import math
+
+    import torch
+
+    from ray_tpu_torch.models.training import (OptimizerConfig,
+                                               init_train_state,
+                                               make_train_step)
+
+    opt = OptimizerConfig(warmup_steps=1, decay_steps=1000).make()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_train_state(init_fn, opt, gen, device)
+    step = make_train_step(loss_fn, opt)
+    reset_flash_launches()
+    metrics, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = flash_launches()
+    want = {"fwd": 2 * steps * n_layers, "bwd": steps * n_layers, "dq": 0,
+            "dkv": 0}
+    assert launches == want, (launches, want)
+    losses = [m["loss"] for m in metrics]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    del state
+    step_s = sum(times[1:]) / (steps - 1)
+    return {"losses": losses, "metrics": metrics, "launches": launches,
+            "step_ms_each": [1e3 * t for t in times],
+            "step_ms": 1e3 * step_s,
+            "peak_memory_gb": (torch.cuda.max_memory_allocated(device)
+                               - held) / 1e9,
+            # what the allocator held at most, against the card's memory
+            "free_at_peak_gb": (torch.cuda.mem_get_info(device)[1]
+                                - torch.cuda.max_memory_reserved(device))
+            / 1e9, "steps": steps}, step_s
+
+
+def train_moe_check(device, layers=MOE_LAYERS, batch=2, seq=2048, steps=6):
+    """8x7b at full width (hidden 4096, 32/8 heads of 128, 8 experts of
+    14336, top-2, capacity factor 1.25, vocab 128256) and ``layers``
+    layers, bf16, remat "nothing", on one seeded (batch, seq) token batch:
+    :func:`timed_training`'s checks, the router's aux loss in (0.8, 1.5)
+    at the first step, and dropped_frac reported. MFU counts
+    ``MoEConfig.flops_per_token(seq)``."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import moe
+
+    full = moe.CONFIGS["8x7b"]
+    cfg = dataclasses.replace(full, base=dataclasses.replace(
+        full.base, n_layers=layers))
+    gen = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.base.vocab_size, (batch, seq),
+                           generator=gen, device=device, dtype=torch.int32)
+    res, step_s = timed_training(
+        device, lambda g: moe.init_params(cfg, g, device),
+        lambda p, b: moe.loss_fn(p, b, cfg), {"tokens": tokens}, layers,
+        steps)
+    aux0 = res["metrics"][0]["aux_loss"]
+    assert 0.8 < aux0 < 1.5, aux0
+    tokens_per_s = batch * seq / step_s
+    res.update({
+        "layers": layers, "batch": batch, "seq": seq,
+        "num_params": cfg.num_params(), "active_params": cfg.active_params(),
+        "capacity": cfg.capacity(batch * seq),
+        "aux_loss_step0": aux0,
+        "dropped_frac": [m["dropped_frac"] for m in res["metrics"]],
+        "tokens_per_s": tokens_per_s,
+        "mfu": cfg.flops_per_token(seq) * tokens_per_s / H100_BF16_PEAK})
+    return res
+
+
+def train_vit_check(device, batch=256, steps=6):
+    """ViT-B/16 at full size (224², patch 16, 12 layers of 768, 12 heads of
+    64, mlp 3072, 1000 classes), bf16, remat "nothing", on ``batch``
+    seeded images and labels: :func:`timed_training`'s checks. MFU counts
+    ``ViTConfig.flops_per_image``."""
+    import torch
+
+    from ray_tpu_torch.models import vit
+
+    cfg = vit.CONFIGS["B16"]
+    gen = torch.Generator(device=device).manual_seed(2)
+    images = torch.rand(batch, cfg.image_size, cfg.image_size, cfg.channels,
+                        generator=gen, device=device)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen,
+                           device=device)
+    res, step_s = timed_training(
+        device, lambda g: vit.init_params(cfg, g, device),
+        lambda p, b: vit.loss_fn(p, b, cfg),
+        {"images": images, "labels": labels}, cfg.n_layers, steps)
+    images_per_s = batch / step_s
+    res.update({"batch": batch, "seq_len": cfg.seq_len,
+                "num_params": cfg.num_params(),
+                "images_per_s": images_per_s,
+                "mfu": cfg.flops_per_image() * images_per_s
+                / H100_BF16_PEAK})
+    return res
+
+
+def backward_products(loss_fn, params, batch):
+    """One forward, then its backward under torch.profiler: the cuBLAS
+    kernels the backward launches. (The profiler's aten::mm count would not
+    do: under "dots" the recompute still enters aten::mm, and the
+    checkpoint hands back the kept output without a launch.)"""
+    import torch
+
+    from ray_tpu_torch.models.training import tree_leaves
+
+    leaves = tree_leaves(params)
+    loss, _ = loss_fn(params, batch)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+    del grads, loss
+    return {"cublas_launches": sum(
+        e.count for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+        and any(k in e.key for k in CUBLAS_KEYS))}
+
+
+def remat_dots_check(device, steps=3, batch=8, seq=2048):
+    """1b_bench under remat "dots" and "nothing", from the same weights
+    and token batch, ``steps`` steps each, and "nothing" again for two
+    steps (the floor: bf16 dQ adds in no fixed order, ROADMAP C). Gates:
+    the first loss equal bit for bit; the parameters after the second step
+    (the first with a learning rate) of "dots" within max(2e-2, 1.5 x the
+    floor's) of "nothing"'s, relative to the update's norm; K1 launched
+    twice and flash_bwd_kernel once per layer per step under both; fewer
+    cuBLAS launches in the backward under "dots". Step ms (the steps after
+    the first) and peak memory of each."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (OptimizerConfig,
+                                               init_train_state,
+                                               make_train_step, tree_leaves,
+                                               tree_map)
+
+    base = bench.CONFIGS["1b_bench"]
+    gen = torch.Generator(device=device).manual_seed(3)
+    params0 = llama.init_params(base, gen, device)
+    tokens = torch.randint(0, base.vocab_size, (batch, seq), generator=gen,
+                           device=device, dtype=torch.int32)
+    b = {"tokens": tokens}
+
+    def dist(a, c):
+        return sum((x.float() - y.float()).square().sum()
+                   for x, y in zip(a, c)).sqrt().item()
+
+    p0 = tree_leaves(params0)
+    runs = {}
+    for name, policy, n in (("nothing", "nothing", steps),
+                            ("dots", "dots", steps),
+                            ("nothing_again", "nothing", 2)):
+        cfg = dataclasses.replace(base, remat_policy=policy)
+        opt = OptimizerConfig(warmup_steps=1, decay_steps=1000).make()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        state = init_train_state(
+            lambda g: tree_map(lambda t: t.clone(), params0), opt, None,
+            device)
+        loss_fn = functools.partial(llama.loss_fn, config=cfg)
+        step = make_train_step(loss_fn, opt)
+        reset_flash_launches()
+        losses, times = [], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(m["loss"])
+            if i == 1:
+                p1 = [x.detach().clone() for x in tree_leaves(state.params)]
+        # the run's own peak: what earlier runs left held is taken out
+        rec = {"losses": [float(x) for x in losses],
+               "launches": flash_launches(), "p1": p1,
+               "peak_memory_gb": (torch.cuda.max_memory_allocated(device)
+                                  - held) / 1e9,
+               "step_ms_each": [1e3 * t for t in times]}
+        if name != "nothing_again":
+            want = {"fwd": 2 * n * base.n_layers, "bwd": n * base.n_layers,
+                    "dq": 0, "dkv": 0}
+            assert rec["launches"] == want, (name, rec["launches"], want)
+            rec["step_ms"] = 1e3 * sum(times[1:]) / (n - 1)
+            rec["backward"] = backward_products(loss_fn, state.params, b)
+            rec["loss0_tensor"] = losses[0]
+        runs[name] = rec
+        del state, step
+    nothing, dots, again = runs["nothing"], runs["dots"], runs["nothing_again"]
+    assert torch.equal(dots.pop("loss0_tensor"),
+                       nothing.pop("loss0_tensor")), "first losses differ"
+    update = dist(nothing["p1"], p0)
+    rel = dist(dots["p1"], nothing["p1"]) / update
+    floor = dist(again["p1"], nothing["p1"]) / update
+    for r in runs.values():
+        del r["p1"]
+    assert rel <= max(2e-2, 1.5 * floor), (rel, floor)
+    assert dots["launches"]["fwd"] == nothing["launches"]["fwd"]
+    assert dots["backward"]["cublas_launches"] < \
+        nothing["backward"]["cublas_launches"], (dots, nothing)
+    return {"nothing": nothing, "dots": dots, "nothing_again": again,
+            "params_step1_rel_err": rel, "floor_rel_err": floor,
+            "update_norm": update, "batch": batch, "seq": seq}
 
 
 # ------------------------------------------------------------- main
@@ -1498,6 +1801,28 @@ def main() -> int:
     report["train"] = train_1b_check(device)
     log("[8] 1b_bench train: " + json.dumps(report["train"]))
 
+    # 8b. the debug MoE and ViT: card == CPU
+    t = time.perf_counter()
+    report["family_debug"] = family_debug_checks(device)
+    log("[8b] debug MoE and ViT, card == CPU: "
+        + json.dumps(report["family_debug"]))
+
+    # 8c. 8x7b at full width, depth cut
+    report["train_moe"] = train_moe_check(device)
+    log(f"[8c] 8x7b ({MOE_LAYERS} layers) train: "
+        + json.dumps(report["train_moe"]))
+
+    # 8d. ViT-B/16 at full size
+    report["train_vit"] = train_vit_check(device)
+    log("[8d] ViT-B16 train: " + json.dumps(report["train_vit"]))
+
+    # 8e. 1b_bench under remat "dots" against "nothing"
+    report["remat_dots"] = remat_dots_check(device)
+    log("[8e] 1b_bench remat dots vs nothing: "
+        + json.dumps(report["remat_dots"]))
+    report["families_s"] = time.perf_counter() - t
+    log(f"[8b-8e] phase time {report['families_s']:.1f} s")
+
     # 9. the kernels line and the result line
     k = report["kernels"]
     lines = []
@@ -1527,35 +1852,54 @@ def main() -> int:
             "library_ms": rec["library_ms"], "dtype": "bfloat16",
             "float32": k[kind_]["float32"], **extra})
     fl = report["flash"]["1b_bench"]
-    # the bf16 kernels' launches come from phase 8 (1b_bench), the f32
-    # kernels' from phase 7 (debug, f32), each read around its own run
-    for name, kern, dname, replaces, launches in (
+    # launches: every training path's run, each read around itself; bf16:
+    # phases 8 (1b_bench), 8c (8x7b), 8d (ViT-B16) and 8e (1b_bench under
+    # both remat policies); f32: phases 7 (debug Llama) and 8b (debug MoE
+    # and ViT)
+    paths = {"bfloat16": {
+        "1b_bench": report["train"]["launches"],
+        "8x7b": report["train_moe"]["launches"],
+        "vit_b16": report["train_vit"]["launches"],
+        "1b_bench_nothing": report["remat_dots"]["nothing"]["launches"],
+        "1b_bench_dots": report["remat_dots"]["dots"]["launches"]},
+        "float32": {
+        "debug_llama": report["debug_train"]["launches"],
+        "debug_moe": report["family_debug"]["moe"]["launches"],
+        "debug_vit": report["family_debug"]["vit"]["launches"]}}
+    for name, kern, dname, replaces in (
             ("flash_fwd_kernel", "fwd", "bfloat16",
-             "ray_tpu/ops/pallas/flash_attention.py:90",
-             report["train"]["launches"]["fwd"]),
+             "ray_tpu/ops/pallas/flash_attention.py:90"),
             ("flash_fwd_f32_kernel", "fwd", "float32",
-             "ray_tpu/ops/pallas/flash_attention.py:90",
-             report["debug_train"]["launches"]["fwd"]),
+             "ray_tpu/ops/pallas/flash_attention.py:90"),
             ("flash_bwd_kernel", "bwd", "bfloat16",
-             "ray_tpu/ops/pallas/flash_attention.py:273",
-             report["train"]["launches"]["bwd"]),
+             "ray_tpu/ops/pallas/flash_attention.py:273"),
             ("flash_bwd_dq_kernel", "dq", "float32",
-             "ray_tpu/ops/pallas/flash_attention.py:326",
-             report["debug_train"]["launches"]["dq"]),
+             "ray_tpu/ops/pallas/flash_attention.py:326"),
             ("flash_bwd_dkv_kernel", "dkv", "float32",
-             "ray_tpu/ops/pallas/flash_attention.py:363",
-             report["debug_train"]["launches"]["dkv"])):
+             "ray_tpu/ops/pallas/flash_attention.py:363")):
         parts = {"fwd": ("out", "lse"), "bwd": ("dq", "dk", "dv"),
                  "dq": ("dq",), "dkv": ("dk", "dv")}[kern]
+        by_path = {path: n[kern] for path, n in paths[dname].items()}
         rec = {
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/csrc/flash_attention.cu",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(by_path.values()),
             "max_abs_err": max(fl[dname]["errors"][p]["max_abs_err"]
                                for p in parts),
             **{key: fl[dname][kern][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "dtype": dname, "shape": fl[dname]["shape"]}
+            "dtype": dname, "shape": fl[dname]["shape"],
+            "launches_by_path": by_path,
+            # the same kernel at the other paths' shapes (phase 6)
+            "at_shapes": {case: {
+                "shape": report["flash"][case][dname]["shape"],
+                "max_abs_err": max(
+                    report["flash"][case][dname]["errors"][p]["max_abs_err"]
+                    for p in parts),
+                **{key: report["flash"][case][dname][kern][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
+                for case in report["flash"] if case != "1b_bench"}}
         lines.append(rec)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),

@@ -6,9 +6,12 @@ weights stacked on a leading ``layers`` axis (``wq`` is (L, E, H, D), …) —
 so weights converted from the JAX pytree (:mod:`ray_tpu_torch.models.convert`)
 load 1:1. ``forward`` and ``loss_fn`` are the training path: a Python loop
 over the layers (the counterpart of ``lax.scan``), each layer under
-``torch.utils.checkpoint`` when ``remat`` is set, attention through
+``torch.utils.checkpoint`` with ``remat_policy`` when ``remat`` is set
+(:mod:`ray_tpu_torch.models.remat`), attention through
 :func:`ray_tpu_torch.ops.attention.flash_attention` (kernels K1, K2a, K2b on
-the card). Serving runs its own prefill and decode step
+the card). The MoE and ViT families (:mod:`~ray_tpu_torch.models.moe`,
+:mod:`~ray_tpu_torch.models.vit`) reuse its attention, head and init.
+Serving runs its own prefill and decode step
 (:mod:`ray_tpu_torch.models.paged_cache`, :mod:`ray_tpu_torch.models.decoding`).
 """
 
@@ -18,8 +21,8 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
-import torch.utils.checkpoint
 
+from ray_tpu_torch.models.remat import remat
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
@@ -42,11 +45,12 @@ class LlamaConfig:
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16   # activation / weight dtype
     remat: bool = True              # checkpoint each layer
-    # "nothing" (recompute the whole layer in the backward; the only policy
-    # ported) or "dots" (save matmul outputs; ROADMAP item 16)
+    # "nothing" (recompute the whole layer in the backward) or "dots" (keep
+    # the outputs of the weight products): models/remat.py
     remat_policy: str = "nothing"
     attn_block: int = 512           # tile of the plain flash backward
-    # Ring/sequence-parallel attention (ROADMAP item 13); None here.
+    # Ring/sequence-parallel attention needs a process group (ROADMAP item
+    # 12); None here.
     sp_axis: Optional[str] = None
 
     @property
@@ -91,6 +95,46 @@ CONFIGS: Dict[str, LlamaConfig] = {
 }
 
 
+def param_logical_axes(config: LlamaConfig) -> Params:
+    """The tree of :func:`init_params` with a tuple of logical axis names
+    for each leaf, as the JAX package names them (``llama.py:100``); the
+    sharding rules that read them belong to ROADMAP item 12."""
+    axes = {
+        "embed": ("embed_vocab", "embed_fsdp"),
+        "layers": {
+            "attn_norm": ("layers", "embed"),
+            "wq": ("layers", "embed_fsdp", "heads", "head_dim"),
+            "wk": ("layers", "embed_fsdp", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed_fsdp", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed_fsdp"),
+            "mlp_norm": ("layers", "embed"),
+            "w_gate": ("layers", "embed_fsdp", "mlp"),
+            "w_up": ("layers", "embed_fsdp", "mlp"),
+            "w_down": ("layers", "mlp", "embed_fsdp"),
+        },
+        "final_norm": ("embed",),
+    }
+    if not config.tie_embeddings:
+        axes["lm_head"] = ("embed_fsdp", "vocab")
+    return axes
+
+
+def trunc_normal(shape, std: float, dtype: torch.dtype, device,
+                 generator: torch.Generator,
+                 stacked: bool = False) -> torch.Tensor:
+    """A (±3σ) truncated normal of ``std``, drawn in f32 and rounded to
+    ``dtype`` (the JAX package's ``tn``). With ``stacked`` the draw is
+    made one slice of the leading axis at a time, so that at most one
+    layer's f32 draw is held beside the result."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for part in (out if stacked else [out]):
+        tmp = torch.empty(part.shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -3.0, 3.0,
+                                    generator=generator)
+        part.copy_(tmp.mul_(std))
+    return out
+
+
 def init_params(config: LlamaConfig, generator: torch.Generator,
                 device=None) -> Params:
     """Truncated-normal init (±3σ) with scaled residual projections, zero
@@ -108,14 +152,7 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     out_std = std / (2 * c.n_layers) ** 0.5
 
     def tn(shape, s, stacked=False):
-        out = torch.empty(shape, dtype=dt, device=dev)
-        parts = out if stacked else [out]
-        for part in parts:
-            tmp = torch.empty(part.shape, dtype=torch.float32, device=dev)
-            torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -3.0, 3.0,
-                                        generator=generator)
-            part.copy_(tmp.mul_(s))
-        return out
+        return trunc_normal(shape, s, dt, dev, generator, stacked)
 
     def zeros(shape):
         return torch.zeros(shape, dtype=dt, device=dev)
@@ -229,33 +266,29 @@ def _attention(x, layer, cos, sin, config: LlamaConfig):
     return _attn_out(out, layer)
 
 
+def check_sp_axis(config: LlamaConfig) -> None:
+    if config.sp_axis is not None:
+        raise NotImplementedError(
+            "sp_axis (ring attention) is not ported: it needs a process "
+            "group, ROADMAP item 12")
+
+
 def make_block(config: LlamaConfig, cos, sin):
     """The transformer block ``block(x, layer) -> x`` (the JAX package's
     scanned block). With ``remat`` the layer runs under
-    ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
-    and the backward recomputes the layer, flash forward included — the
-    ``nothing_saveable`` policy."""
+    ``torch.utils.checkpoint`` with ``remat_policy``
+    (:func:`ray_tpu_torch.models.remat.remat`): "nothing" keeps only its
+    input and recomputes the layer, flash forward included; "dots" also
+    keeps the outputs of its weight products."""
     c = config
-    if c.sp_axis is not None:
-        raise NotImplementedError(
-            "sp_axis (ring attention) is not ported: ROADMAP item 13")
-    if c.remat and c.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' is not ported: ROADMAP item 16")
+    check_sp_axis(c)
 
     def block(x, layer):
         x = x + _attention(rmsnorm(x, layer["attn_norm"], c.norm_eps), layer,
                            cos, sin, c)
         return x + _mlp(rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer)
 
-    if not c.remat:
-        return block
-
-    def remat_block(x, layer):
-        return torch.utils.checkpoint.checkpoint(block, x, layer,
-                                                 use_reentrant=False)
-
-    return remat_block
+    return remat(block, c.remat_policy) if c.remat else block
 
 
 def forward(params: Params, tokens: torch.Tensor,

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where a training step of ray_tpu_torch goes, on one CUDA card.
 
-    python3 scripts/torch_train_profile.py [--config 1b_bench] [--batch 8]
-        [--seq 2048] [--steps 3]
+    python3 scripts/torch_train_profile.py [--model llama|moe|vit]
+        [--config NAME] [--layers N] [--batch B] [--seq S] [--steps 3]
 
-Trains ``--config`` from random weights on one random token batch, as
-``ray_tpu_torch.bench.run`` does: a warm-up step, ``--steps`` steps timed
-by the host clock (one synchronize at the end), then ``--steps`` steps
-under ``torch.profiler``. Prints one JSON object with, per step:
+Trains ``--config`` of ``--model`` from random weights on one random
+batch, as ``ray_tpu_torch.bench.run`` does: a warm-up step, ``--steps``
+steps timed by the host clock (one synchronize at the end), then
+``--steps`` steps under ``torch.profiler``. The defaults: llama
+``1b_bench``, batch 8 × 2048; moe ``8x7b`` cut to ``--layers 3``, batch 2
+× 2048; vit ``B16``, 256 images. Prints one JSON object with, per step:
 
 - ``step_ms``, the host clock; ``device_busy_ms``, the sum of the
   device's kernels and copies (one stream, so they do not overlap);
@@ -20,13 +22,21 @@ under ``torch.profiler``. Prints one JSON object with, per step:
 - ``by_phase``: device time between CUDA events recorded where each
   phase starts: the layers' forward, the head's and the loss's forward,
   their backward, the layers' backward (remat recompute included) and the
-  optimizer (global norm, clip, AdamW).
+  optimizer (global norm, clip, AdamW);
+- ``split``: device time by the op that launched it: the products
+  (``aten::mm`` calls with an (expert · slot) dimension are the MoE
+  dispatch and combine products and their gradients; ``aten::bmm`` the
+  expert FFN; other ``aten::mm`` the dense weights and the head), the
+  flash kernels, the optimizer (the kernels launched inside
+  ``AdamW.update_``), and the rest (elementwise work, reductions, copies
+  outside the optimizer).
 
 The profiler's table goes to ``chiprun_out/torch_train_profile.txt``.
 Needs CUDA.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -34,6 +44,12 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+OPT_RANGE = "optimizer"   # the profiler range around AdamW.update_
+DEFAULTS = {  # model: (config, layers or None for the config's, batch)
+    "llama": ("1b_bench", None, 8),
+    "moe": ("8x7b", 3, 2),
+    "vit": ("B16", None, 256),
+}
 PHASES = [  # (name, event that starts it, event that ends it)
     ("layers forward", "step_start", "head_fwd_start"),
     ("head forward", "head_fwd_start", "head_fwd_end"),
@@ -68,8 +84,11 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", default="1b_bench")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--model", choices=sorted(DEFAULTS), default="llama")
+    ap.add_argument("--config")
+    ap.add_argument("--layers", type=int,
+                    help="cut the depth to this many layers")
+    ap.add_argument("--batch", type=int)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
@@ -78,20 +97,43 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from ray_tpu_torch import bench
-    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models import llama, moe, vit
     from ray_tpu_torch.models.training import (OptimizerConfig,
                                                init_train_state,
                                                make_train_step)
 
     dev = torch.device("cuda")
-    cfg = bench.CONFIGS[args.config]
+    config, layers, batch_size = DEFAULTS[args.model]
+    config = args.config or config
+    layers = args.layers or layers
+    batch_size = args.batch or batch_size
+    module = {"llama": llama, "moe": moe, "vit": vit}[args.model]
+    cfg = (bench.CONFIGS if args.model == "llama"
+           else module.CONFIGS)[config]
+    if layers is not None:
+        cfg = (dataclasses.replace(cfg, base=dataclasses.replace(
+            cfg.base, n_layers=layers)) if args.model == "moe"
+            else dataclasses.replace(cfg, n_layers=layers))
     opt = OptimizerConfig(warmup_steps=1, decay_steps=1000).make()
     gen = torch.Generator(device=dev).manual_seed(0)
-    state = init_train_state(lambda g: llama.init_params(cfg, g, dev), opt,
+    state = init_train_state(lambda g: module.init_params(cfg, g, dev), opt,
                              gen, dev)
-    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
-                           generator=gen, device=dev, dtype=torch.int32)
-    batch = {"tokens": tokens}
+    if args.model == "vit":
+        batch = {"images": torch.rand(
+                     batch_size, cfg.image_size, cfg.image_size,
+                     cfg.channels, generator=gen, device=dev),
+                 "labels": torch.randint(0, cfg.num_classes, (batch_size,),
+                                         generator=gen, device=dev)}
+        seq = cfg.seq_len
+    else:
+        vocab = (cfg.base if args.model == "moe" else cfg).vocab_size
+        batch = {"tokens": torch.randint(
+            0, vocab, (batch_size, args.seq), generator=gen, device=dev,
+            dtype=torch.int32)}
+        seq = args.seq
+    # the MoE's (expert · slot) axis: its products are dispatch and combine
+    expert_slots = (cfg.n_experts * cfg.capacity(batch_size * seq)
+                    if args.model == "moe" else None)
 
     marks = {}
 
@@ -101,6 +143,7 @@ def main() -> int:
         marks[name] = ev
 
     head_logits = llama._head_logits
+    head_module = vit if args.model == "vit" else llama
 
     def marked_head_logits(x, head):
         mark("head_fwd_start")
@@ -112,12 +155,13 @@ def main() -> int:
             out.register_hook(lambda g: mark("loss_bwd_end"))
         return out
 
-    llama._head_logits = marked_head_logits
+    head_module._head_logits = marked_head_logits
     update = opt.update_
 
     def marked_update(*a):
         mark("opt_start")
-        out = update(*a)
+        with torch.profiler.record_function(OPT_RANGE):
+            out = update(*a)
         mark("opt_end")
         return out
 
@@ -125,7 +169,7 @@ def main() -> int:
 
     def loss(p, b):
         mark("step_start")
-        out = llama.loss_fn(p, b, cfg)
+        out = module.loss_fn(p, b, cfg)
         mark("loss_fwd_end")
         return out
 
@@ -144,19 +188,36 @@ def main() -> int:
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts,
+                                record_shapes=True) as prof:
         for _ in range(args.steps):
             state, m = step(state, batch)
         torch.cuda.synchronize()
     averages = prof.key_averages()
+    products = {"dispatch/combine products": 0.0, "expert bmm": 0.0,
+                "other products": 0.0, "optimizer": 0.0}
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.key_averages(group_by_input_shape=True):
+        if getattr(e, "device_type", None) == cuda:
+            continue        # kernels, and the range's copy on the GPU
+        if e.key == OPT_RANGE:
+            part = "optimizer"
+        elif e.key == "aten::bmm":
+            part = "expert bmm"
+        elif e.key == "aten::mm":
+            dims = [d for shape in e.input_shapes for d in shape]
+            part = ("dispatch/combine products" if expert_slots in dims
+                    else "other products")
+        else:
+            continue
+        products[part] += e.device_time_total / 1e3 / args.steps
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "torch_train_profile.txt"),
               "w") as f:
         f.write(averages.table(sort_by="cuda_time_total", row_limit=60))
     kernels = [e for e in averages
-               if getattr(e, "device_type", None)
-               == torch.autograd.DeviceType.CUDA
-               and e.device_time_total > 0]
+               if getattr(e, "device_type", None) == cuda
+               and e.device_time_total > 0 and e.key != OPT_RANGE]
     by_kind = {}
     for e in kernels:
         rec = by_kind.setdefault(kind_of(e.key), {"ms": 0.0, "launches": 0})
@@ -164,16 +225,26 @@ def main() -> int:
         rec["launches"] += e.count / args.steps
     busy_ms = sum(r["ms"] for r in by_kind.values())
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
+    flash_ms = sum(r["ms"] for k, r in by_kind.items()
+                   if k.startswith("flash"))
+    split = dict(products, flash=flash_ms)
+    split["elementwise and the rest"] = busy_ms - sum(split.values())
     print(json.dumps({
-        "config": args.config, "batch": args.batch, "seq": args.seq,
+        "model": args.model, "config": config, "layers": getattr(
+            getattr(cfg, "base", cfg), "n_layers"),
+        "batch": batch_size, "seq": seq,
         "device": torch.cuda.get_device_name(0),
         "step_ms": step_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / step_ms,
-        "tokens_per_s": args.batch * args.seq / (step_ms / 1e3),
+        ("images_per_s" if args.model == "vit" else "tokens_per_s"):
+        batch_size * (1 if args.model == "vit" else seq) / (step_ms / 1e3),
         "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9,
+        "card_memory_gb": torch.cuda.mem_get_info(dev)[1] / 1e9,
         "loss": float(m["loss"]),
         "by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1]["ms"])),
         "by_phase": phases,
+        "split": split,
         "top_kernels": [{"name": e.key[:100], "ms": e.device_time_total
                          / 1e3 / args.steps, "launches": e.count / args.steps}
                         for e in top],

@@ -8,7 +8,11 @@
   converted initial state and the same numpy batch: losses, accuracy,
   grad norms and final parameters;
 - a run carried on from ``train_state_from_jax`` after 2 JAX steps, then 2
-  steps in each package.
+  steps in each package;
+- ``remat_policy="dots"`` (Llama and MoE): loss and gradients equal to
+  "nothing"'s bit for bit and to the JAX package's "dots" at the f32
+  tolerances below, and, counted at the dispatcher, a backward that
+  recomputes no ``aten.mm``.
 
 Tolerances: f32 logits 1e-4 absolute and losses 1e-5 relative (the same
 f32 math, summed in another order). Parameters after the steps: the
@@ -21,6 +25,7 @@ that rounding decides; 5e-5 is 5% of one step. bf16 logits 0.06 absolute and los
 (see tests/test_torch_models.py).
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -28,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ray_tpu.models import llama as jllama
 from ray_tpu.models import training as jtraining
@@ -202,3 +208,112 @@ def test_resume_from_jax_state(jax_run):
         assert t["lr_step"] == j["lr_step"]
         assert t["loss"] == pytest.approx(j["loss"], rel=1e-5)
     _assert_params_close(state.params, jax_run["params"][4], p2)
+
+
+# ------------------------------------------------ remat_policy="dots"
+
+class _OpCount(TorchDispatchMode):
+    """Counts the aten ops that run while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _remat_config(module, name, remat, policy):
+    cfg = module.CONFIGS[name]
+    if hasattr(cfg, "base"):
+        return dataclasses.replace(cfg, base=dataclasses.replace(
+            cfg.base, remat=remat, remat_policy=policy))
+    return dataclasses.replace(cfg, remat=remat, remat_policy=policy)
+
+
+def _loss_and_grads(loss_fn, params, batch):
+    """Loss, gradients, and the aten ops counted in the forward and in the
+    backward, on fresh leaves of ``params``."""
+    tree = ttraining.tree_map(
+        lambda t: t.detach().clone().requires_grad_(True), params)
+    leaves = ttraining.tree_leaves(tree)
+    fwd = _OpCount()
+    with fwd:
+        loss, _ = loss_fn(tree, batch)
+    bwd = _OpCount()
+    with bwd:
+        grads = torch.autograd.grad(loss, leaves)
+    return loss, grads, fwd.n, bwd.n
+
+
+@pytest.mark.parametrize("model", ["llama", "moe"])
+def test_dots_equals_nothing_and_jax(model):
+    """remat_policy="dots" changes what the backward keeps, not what it
+    computes: the f32 loss and every gradient equal "nothing"'s bit for
+    bit (the recompute is the same arithmetic on the CPU), and the JAX
+    package's "dots" step to the Llama tolerances (loss 1e-5 relative,
+    gradients 1e-4 absolute)."""
+    from ray_tpu.models import moe as jmoe
+    from ray_tpu_torch.models import moe as tmoe
+
+    jmod, tmod = {"llama": (jllama, tllama), "moe": (jmoe, tmoe)}[model]
+    jc = _remat_config(jmod, "debug", True, "dots")
+    jp = jmod.init_params(jc, jax.random.key(11))
+    tp = params_from_jax(_np_tree(jp))
+    tokens = _batch(seed=11)["tokens"]
+    tb = {"tokens": torch.from_numpy(tokens)}
+    res = {}
+    for policy in ("nothing", "dots"):
+        tc = _remat_config(tmod, "debug", True, policy)
+        res[policy] = _loss_and_grads(
+            lambda p, b: tmod.loss_fn(p, b, tc), tp, tb)[:2]
+    (loss_n, grads_n), (loss_d, grads_d) = res["nothing"], res["dots"]
+    assert torch.equal(loss_d, loss_n)
+    assert all(torch.equal(a, b) for a, b in zip(grads_d, grads_n))
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: jmod.loss_fn(p, {"tokens": jnp.asarray(tokens)}, jc),
+        has_aux=True)(jp)
+    np.testing.assert_allclose(loss_d.item(), float(jloss), rtol=1e-5)
+    for g, j in zip(grads_d, jax.tree_util.tree_leaves(jgrads)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-4)
+
+
+@pytest.mark.parametrize("model", ["llama", "moe"])
+@pytest.mark.parametrize("early_stop", [True, False])
+def test_dots_backward_recomputes_no_mm(model, early_stop):
+    """Counted at the dispatcher: under "dots" the backward runs exactly
+    the aten.mm calls of a backward without remat (the gradients'
+    products), so it recomputes none. Under "nothing" it recomputes the
+    layers' forward: with the checkpoint's early stop off, every aten.mm
+    of it (all of the forward's but the head's, which is outside the
+    layers); with it on (the default), every one up to the layer's last
+    tensor the backward needs (Llama's down projection, whose output no
+    backward reads, is skipped). aten.bmm (here the plain attention's
+    and the experts' batched products) is recomputed under both."""
+    from ray_tpu_torch.models import moe as tmoe
+
+    tmod = {"llama": tllama, "moe": tmoe}[model]
+    params = tmod.init_params(tmod.CONFIGS["debug"],
+                              torch.Generator().manual_seed(12), "cpu")
+    tb = {"tokens": torch.from_numpy(_batch(seed=12)["tokens"])}
+    counts = {}
+    with torch.utils.checkpoint.set_checkpoint_early_stop(early_stop):
+        for remat, policy in ((False, "nothing"), (True, "nothing"),
+                              (True, "dots")):
+            cfg = _remat_config(tmod, "debug", remat, policy)
+            counts[remat, policy] = _loss_and_grads(
+                lambda p, b: tmod.loss_fn(p, b, cfg), params, tb)[2:]
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    fwd0, bwd0 = counts[False, "nothing"]
+    n_layers = 2
+    # per layer: q, k, v, o and the MLP's gate, up, down; or q, k, v, o
+    # and the MoE router, dispatch and combine
+    assert fwd0[mm] == 7 * n_layers + 1
+    for key, (fwd, _) in counts.items():
+        assert (fwd[mm], fwd[bmm]) == (fwd0[mm], fwd0[bmm]), key
+    dots, nothing = counts[True, "dots"][1], counts[True, "nothing"][1]
+    assert dots[mm] == bwd0[mm]
+    skipped = {"llama": n_layers if early_stop else 0, "moe": 0}[model]
+    assert nothing[mm] == bwd0[mm] + 7 * n_layers - skipped
+    assert dots[bmm] == nothing[bmm] == bwd0[bmm] + fwd0[bmm]
