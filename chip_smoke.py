@@ -92,7 +92,20 @@ Phases (any failure exits non-zero, and no result line is printed):
      run again; bf16 dQ adds in no fixed order), the same K1 launches,
      fewer cuBLAS launches in the backward under "dots"; step ms and peak
      memory of each;
-  9. the kernels line, then the result line.
+  9. the runtime (ray_tpu_torch.init with no arguments): (a) GPU counted 1
+     with no CUDA loaded in the worker factory; (b) a num_gpus=1 task sees
+     its grant and one GPU, and runs K4 against its plain version at phase
+     3's shape and tolerance with nothing built in the worker; (c) a
+     num_gpus=1 actor seeds the 8b weights itself and serves phase 5's
+     prompts through actor calls: its greedy tokens equal phase 5's paged
+     tokens, K3 launched once per layer per decode step, GPU 0 available
+     while it lives; tokens/s beside phase 5's, the p50 round trip of 200
+     no-op actor calls; (d) two num_gpus=0.5 actors: a 1 GiB bf16 CUDA
+     tensor put as a device object is the same tensor in its producer and
+     bit-equal on the consumer's GPU; GB/s and the store's device_bytes;
+     (e) after the kills GPU is 1 again, and after shutdown() no process
+     of the session is left;
+  10. the kernels line, then the result line.
 
 Needs one CUDA card, nvcc, and about 70 GB of device memory; no network.
 """
@@ -546,6 +559,22 @@ def mean_ms(times):
     return 1e3 * sum(times) / len(times) if times else None
 
 
+def watch(fn, times, finite):
+    """``fn`` (an engine step returning ``(cache, logits)``) timed to the
+    end of its device work into ``times``, with whether its logits were
+    finite appended to ``finite``."""
+    import torch
+
+    def call(*args):
+        t = time.perf_counter()
+        cache, logits = fn(*args)
+        finite.append(bool(torch.isfinite(logits).all()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return cache, logits
+    return call
+
+
 def serve_check(params, cfg, kv_cache, prompts, max_tokens, num_slots=4,
                 max_seq=2048, device=None, **engine_kw):
     """Serve ``prompts`` through LLMEngine on the card with each kernel's
@@ -563,27 +592,16 @@ def serve_check(params, cfg, kv_cache, prompts, max_tokens, num_slots=4,
                     kv_cache=kv_cache, kv_block_size=64, device=device,
                     **engine_kw)
     finite, decode_s, prefill_s, chunk_s = [], [], [], []
-
-    def watch(fn, times):
-        def call(*args):
-            t = time.perf_counter()
-            cache, logits = fn(*args)
-            finite.append(bool(torch.isfinite(logits).all()))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-            return cache, logits
-        return call
-
-    eng._decode = watch(eng._decode, decode_s)
-    eng._prefill = watch(eng._prefill, prefill_s)
+    eng._decode = watch(eng._decode, decode_s, finite)
+    eng._prefill = watch(eng._prefill, prefill_s, finite)
     if eng._chunk_prefill is not None:
-        eng._chunk_prefill = watch(eng._chunk_prefill, chunk_s)
+        eng._chunk_prefill = watch(eng._chunk_prefill, chunk_s, finite)
     verify_s, draft_s = [], []
     prop = eng._proposer
     if prop is not None:
-        eng._spec_verify = watch(eng._spec_verify, verify_s)
+        eng._spec_verify = watch(eng._spec_verify, verify_s, finite)
         if hasattr(prop, "_decode"):
-            prop._decode = watch(prop._decode, draft_s)
+            prop._decode = watch(prop._decode, draft_s, finite)
     try:
         paged_decode_attention.launches = 0
         decode_attention.launches = 0
@@ -1618,6 +1636,363 @@ def remat_dots_check(device, steps=3, batch=8, seq=2048):
             "update_norm": update, "batch": batch, "seq": seq}
 
 
+# ------------------------------------------------------------- phase 9
+# The runtime: remote functions and actor classes below are plain, made
+# remote in runtime_check and shipped to the workers by value (cloudpickle).
+
+DEVICE_OBJECT_BYTES = 1 << 30    # the bf16 tensor phase 9 (d) moves
+NOOP_CALLS = 200
+
+
+def natives_loaded():
+    """The runtime's C natives in this process. Each loader returns None
+    where its build failed, and the runtime then takes its Python paths
+    without a word, so phase 9 asserts them in the driver and in a GPU
+    actor."""
+    from ray_tpu_torch.object_store import shm
+    from ray_tpu_torch.rpc import native
+
+    return {"fastspec": native.load_fastspec() is not None,
+            "fastloop": native.load_fastloop() is not None,
+            "shm_store": shm._load() is not None}
+
+
+def k4_in_worker(seed=0, B=8, H=32, KV=8, D=128, S=2048):
+    """A num_gpus=1 task: its grant, and K4 against its plain version on
+    CUDA tensors made here, at phase 3's shape and lengths."""
+    import torch
+
+    from ray_tpu_torch import resolve_device
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    count = torch.cuda.device_count()
+    if count != 1:
+        raise RuntimeError(f"a num_gpus=1 worker sees {count} GPUs "
+                           f"(CUDA_VISIBLE_DEVICES={visible!r})")
+    device = resolve_device(None)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(B, 1, H, D, generator=gen, device=device)
+    k, v = (torch.randn(B, S, KV, D, generator=gen, device=device)
+            for _ in range(2))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    lens = torch.tensor(([1, 64, 127, 128, 129, S, 777, 0] * B)[:B],
+                        dtype=torch.int32, device=device)
+    decode_attention.launches = 0
+    got = decode_attention(q, k, v, lens, scale=D ** -0.5)
+    launches = decode_attention.launches
+    want = decode_attention_reference(q, k, v, lens, scale=D ** -0.5)
+    err = (got.float() - want.float()).abs().max().item()
+    return {"visible": visible, "device_count": count,
+            "device": torch.cuda.get_device_name(0), "launches": launches,
+            "max_abs_err": err, "excess": err / TOL["bfloat16"],
+            "built_here": sorted(_build.LOGS)}
+
+
+class EngineHost:
+    """An actor hosting LLMEngine on its own GPU: the weights are seeded
+    here (phase 5's seed), so none cross the object store."""
+
+    def __init__(self, model, seed, **engine_kw):
+        import torch
+
+        from ray_tpu_torch import resolve_device
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.serve.llm import LLMEngine
+
+        device = resolve_device(None)   # raises where no GPU is visible
+        self.cfg = llama.CONFIGS[model]
+        params = llama.init_params(
+            self.cfg, torch.Generator(device=device).manual_seed(seed),
+            device)
+        self.eng = LLMEngine(self.cfg, params, device=None, **engine_kw)
+        # timed as phase 5's serve_check times its engine
+        self.decode_s, self.prefill_s, self.finite = [], [], []
+        self.eng._decode = watch(self.eng._decode, self.decode_s, self.finite)
+        self.eng._prefill = watch(self.eng._prefill, self.prefill_s,
+                                  self.finite)
+
+    def grant(self):
+        import torch
+
+        return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                torch.cuda.device_count())
+
+    def natives(self):
+        return natives_loaded()
+
+    def reset_counts(self):
+        from ray_tpu_torch.ops.decode_attention import decode_attention
+        from ray_tpu_torch.ops.paged_decode_attention import \
+            paged_decode_attention
+
+        paged_decode_attention.launches = 0
+        decode_attention.launches = 0
+        self._steps0 = self.eng.stats()["steps"]
+        for times in (self.decode_s, self.prefill_s, self.finite):
+            times.clear()
+
+    def counts(self):
+        from ray_tpu_torch.ops.decode_attention import decode_attention
+        from ray_tpu_torch.ops.paged_decode_attention import \
+            paged_decode_attention
+
+        return {"launches": {
+            "paged_decode_attention": paged_decode_attention.launches,
+            "decode_attention": decode_attention.launches},
+            "decode_steps": self.eng.stats()["steps"] - self._steps0,
+            "n_layers": self.cfg.n_layers,
+            "decode_step_ms_mean": mean_ms(self.decode_s),
+            "prefill_ms_mean": mean_ms(self.prefill_s),
+            "finite": bool(self.finite) and all(self.finite)}
+
+    def generate(self, prompt, max_tokens):
+        return self.eng.generate(prompt, max_tokens=max_tokens,
+                                 timeout_s=600)
+
+    def noop(self):
+        return None
+
+    def shutdown(self):
+        self.eng.shutdown()
+
+
+class TensorProducer:
+    """Puts a seeded bf16 CUDA tensor as a device object, and notes where
+    its memory store keeps each large value it stores (the host copy a
+    consumer pulls in chunks): the node's shm arena, the heap, or the
+    spill directory."""
+
+    def put(self, nbytes, seed):
+        import torch
+
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.core_worker.worker import CoreWorker
+
+        store = CoreWorker.current_or_raise().memory_store
+        self.stored, put = [], store.put
+
+        def put_and_note(object_id, *args, **kw):
+            put(object_id, *args, **kw)
+            e = store._entries.get(object_id)
+            if e is not None and e.size >= 1 << 20:
+                self.stored.append({
+                    "bytes": e.size, "shm": e.shm_backed,
+                    "spilled": e.spilled_path is not None})
+
+        store.put = put_and_note
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.t = torch.randn(nbytes // 2, generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+        ref = rt.put(self.t, _tensor_transport="device")
+        same = rt.get(ref, timeout=60).data_ptr() == self.t.data_ptr()
+        stats = CoreWorker.current_or_raise().device_store.stats()
+        return [ref], same, stats
+
+    def staging(self):
+        return self.stored
+
+
+class TensorConsumer:
+    """Gets a producer's device object and holds it to the same seed."""
+
+    def get(self, refs, nbytes, seed):
+        import torch
+
+        import ray_tpu_torch as rt
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = rt.get(refs[0], timeout=600)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        want = torch.randn(nbytes // 2, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+        return {"device": str(got.device), "dtype": str(got.dtype),
+                "bit_equal": torch.equal(got.view(torch.int16),
+                                         want.view(torch.int16)),
+                "seconds": secs, "gb_per_s": nbytes / secs / 1e9}
+
+
+def _available_gpu(rt, expect, within=60.0):
+    deadline = time.monotonic() + within
+    while True:
+        got = rt.available_resources().get("GPU", 0.0)
+        if got == expect or time.monotonic() > deadline:
+            return got
+        time.sleep(0.05)
+
+
+def _session_processes(session_dir):
+    """Live processes (zombies excluded) of a runtime session: the worker
+    factory and its forks name the session's socket on their command line,
+    exec-spawned workers carry RT_SESSION_DIR."""
+    found = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read()
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = f.read()
+            with open(f"/proc/{pid}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if state != "Z" and (session_dir.encode() in cmd or
+                             b"RT_SESSION_DIR=" + session_dir.encode()
+                             in env):
+            found.append(int(pid))
+    return found
+
+
+def runtime_check(prompts, max_tokens, want_outputs, in_process):
+    """Phase 9: the runtime on the card. (a) init() finds the GPU with no
+    CUDA in the worker factory; (b) a num_gpus=1 task runs K4; (c) a
+    num_gpus=1 actor serves phase 5's prompts at 8b through actor calls,
+    its greedy tokens ``want_outputs`` and its rates reported beside
+    ``in_process`` (phase 5's paged tokens/s and step times); (d) a 1 GiB
+    bf16 device object crosses two num_gpus=0.5 actors; (e) the GPU comes
+    back and shutdown() leaves no worker of the session."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import api
+    from ray_tpu_torch.core_worker.worker import CoreWorker
+
+    out = {}
+    t = time.perf_counter()
+    rt.init()
+    out["init_s"] = time.perf_counter() - t
+    raylet, session = api._head["raylet"], api._head["session_dir"]
+    try:
+        out["natives_driver"] = natives_loaded()
+        assert all(out["natives_driver"].values()), out["natives_driver"]
+        # (a)
+        total = rt.cluster_resources()
+        out["cluster_resources"] = total
+        assert total.get("GPU") == 1, total
+        deadline = time.monotonic() + 60
+        while raylet._factory is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert raylet._factory is not None, "the worker factory never came up"
+        cuda_in_factory = []
+        for proc in raylet._factory_procs:
+            with open(f"/proc/{proc.pid}/maps") as f:
+                cuda_in_factory.append("libcuda" in f.read())
+        out["cuda_in_factory"] = cuda_in_factory
+        assert not any(cuda_in_factory), "the worker factory loaded CUDA"
+
+        # (b)
+        task = rt.remote(num_gpus=1)(k4_in_worker)
+        out["k4_task"] = rec = rt.get(task.remote(), timeout=600)
+        log("[9] num_gpus=1 task: " + json.dumps(rec))
+        assert rec["visible"] == "0" and rec["device_count"] == 1, rec
+        assert rec["launches"] == 1 and rec["excess"] <= 1.0, rec
+        assert rec["built_here"] == [], rec
+
+        # (c)
+        Host = rt.remote(num_gpus=1, max_concurrency=len(prompts) + 2)(
+            EngineHost)
+        t = time.perf_counter()
+        host = Host.remote("8b", 0, num_slots=4, max_seq=2048,
+                           kv_cache="paged", kv_block_size=64)
+        out["actor_grant"] = list(rt.get(host.grant.remote(), timeout=900))
+        out["actor_start_s"] = time.perf_counter() - t
+        assert out["actor_grant"] == ["0", 1], out["actor_grant"]
+        out["natives_actor"] = rt.get(host.natives.remote(), timeout=60)
+        assert all(out["natives_actor"].values()), out["natives_actor"]
+        out["gpu_available_while_held"] = _available_gpu(rt, 0.0)
+        assert out["gpu_available_while_held"] == 0.0, out
+        # the actor's cold first request, reported on its own: phase 5's
+        # engine runs in a process whose CUDA libraries earlier phases
+        # loaded, the actor's does not
+        t = time.perf_counter()
+        rt.get(host.generate.remote(prompts[0][:8], 4), timeout=600)
+        out["actor_first_request_s"] = time.perf_counter() - t
+        rt.get(host.reset_counts.remote(), timeout=60)
+        t = time.perf_counter()
+        outs = rt.get([host.generate.remote(p, max_tokens)
+                       for p in prompts], timeout=900)
+        wall = time.perf_counter() - t
+        counts = rt.get(host.counts.remote(), timeout=60)
+        tokens = sum(len(o) for o in outs)
+        out["serve"] = {"tokens": tokens, "wall_s": wall,
+                        "tokens_per_s": tokens / wall,
+                        "in_process": in_process, **counts,
+                        "equal_to_phase_5": outs == want_outputs}
+        assert counts["finite"], "non-finite logits in the actor"
+        assert outs == want_outputs, [first_divergence(a, b) for a, b in
+                                      zip(outs, want_outputs)]
+        want = counts["decode_steps"] * counts["n_layers"]
+        assert counts["launches"]["paged_decode_attention"] == want, counts
+        assert counts["launches"]["decode_attention"] == 0, counts
+        # count the no-op calls that ride the native fastloop channel
+        sub = CoreWorker.current_or_raise()._actor_submitter(host._actor_id)
+        fast, try_fast = [0], sub._try_fast
+
+        def counted(spec):
+            ok = try_fast(spec)
+            fast[0] += ok
+            return ok
+
+        sub._try_fast = counted
+        rts = []
+        try:
+            for _ in range(NOOP_CALLS):
+                t = time.perf_counter()
+                rt.get(host.noop.remote(), timeout=60)
+                rts.append(time.perf_counter() - t)
+        finally:
+            sub._try_fast = try_fast
+        rts.sort()
+        out["noop_round_trip_ms"] = {"p50": 1e3 * rts[len(rts) // 2],
+                                     "p99": 1e3 * rts[int(len(rts) * 0.99)],
+                                     "calls": NOOP_CALLS,
+                                     "over_fastloop": fast[0]}
+        log("[9] 8b actor: " + json.dumps({k: out[k] for k in (
+            "actor_grant", "natives_driver", "natives_actor",
+            "actor_start_s", "gpu_available_while_held",
+            "actor_first_request_s", "serve", "noop_round_trip_ms")}))
+        rt.get(host.shutdown.remote(), timeout=120)
+        rt.kill(host)
+        assert _available_gpu(rt, 1.0) == 1.0, "the 8b actor's GPU"
+
+        # (d)
+        producer = rt.remote(num_gpus=0.5)(TensorProducer).remote()
+        consumer = rt.remote(num_gpus=0.5)(TensorConsumer).remote()
+        refs, same, stats = rt.get(producer.put.remote(
+            DEVICE_OBJECT_BYTES, 7), timeout=600)
+        got = rt.get(consumer.get.remote(refs, DEVICE_OBJECT_BYTES, 7),
+                     timeout=900)
+        out["device_object"] = {"bytes": DEVICE_OBJECT_BYTES,
+                                "same_tensor_in_producer": same,
+                                "producer_stats": stats, **got,
+                                "staged": rt.get(producer.staging.remote(),
+                                                 timeout=60)}
+        log("[9] device object: " + json.dumps(out["device_object"]))
+        assert same, "get in the producer is not the same tensor"
+        assert stats["device_bytes"] == DEVICE_OBJECT_BYTES, stats
+        assert got["bit_equal"] and got["device"].startswith("cuda"), got
+        del refs
+
+        # (e)
+        rt.kill(producer)
+        rt.kill(consumer)
+        out["gpu_after_kills"] = _available_gpu(rt, 1.0)
+        assert out["gpu_after_kills"] == 1.0, out["gpu_after_kills"]
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while _session_processes(session) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    out["left_after_shutdown"] = _session_processes(session)
+    assert out["left_after_shutdown"] == [], out["left_after_shutdown"]
+    return out
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -1823,7 +2198,23 @@ def main() -> int:
     report["families_s"] = time.perf_counter() - t
     log(f"[8b-8e] phase time {report['families_s']:.1f} s")
 
-    # 9. the kernels line and the result line
+    # 9. the runtime: a GPU task, phase 5's requests served at 8b from a GPU
+    # actor, a device object between two half-GPU actors
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    report["runtime"] = runtime_check(
+        prompts, 32, report["serve"]["paged"]["outputs"],
+        {k: report["serve"]["paged"][k] for k in (
+            "tokens_per_s", "decode_step_ms_mean", "prefill_ms_mean",
+            "decode_steps")})
+    report["runtime_s"] = time.perf_counter() - t
+    log("[9] runtime: " + json.dumps(
+        {k: report["runtime"][k] for k in (
+            "init_s", "cluster_resources", "cuda_in_factory",
+            "gpu_after_kills", "left_after_shutdown")}))
+    log(f"[9] phase time {report['runtime_s']:.1f} s")
+
+    # 10. the kernels line and the result line
     k = report["kernels"]
     lines = []
     for name, kind_, src_kernel, replaces in (
@@ -1834,12 +2225,16 @@ def main() -> int:
              "ray_tpu/ops/pallas/decode_attention.py:90")):
         rec = k[kind_]["bfloat16"]
         main_run = report["serve"][kind_]["launches"][src_kernel]
+        # phase 9: the 8b actor's serving run (K3) and the GPU task (K4),
+        # each read around itself in its own process
+        main_run += report["runtime"]["serve"]["launches"][src_kernel]
         extra = {}
         if kind_ == "slot":
             # K4 also runs the speculative engines' plain steps and every
             # draft step (phase 5c), each run read around itself
             main_run += sum(report["spec"][n]["launches"][src_kernel]
                             for n in ("ngram", "self_draft", "draft_1b"))
+            main_run += report["runtime"]["k4_task"]["launches"]
             extra["d64"] = k["slot_d64"]
         lines.append({
             "name": name, "route": "cuda",

@@ -1,1 +1,2 @@
-"""Host-side utilities of the port: the fault-point hook."""
+"""Host-side utilities of the port: ids, resources, config, status, the
+fault-point hook and GPU detection."""

@@ -1,5 +1,6 @@
 """Deterministic fault injection at named points (port of
-``ray_tpu/common/faults.py``, cut to the points the LLM engine declares).
+``ray_tpu/common/faults.py``, cut to the points the port declares: the
+runtime's get/put/lease path and the LLM engine).
 
 A place that may fail declares a *named fault point*::
 
@@ -18,18 +19,24 @@ according to the schedule:
 * ``prob:P[:S]``  — fire with probability P from a seeded RNG (seed S,
   default 0)
 
-Arm with :func:`inject`, disarm and reset the counters with :func:`clear`
-(same process only).
+Configuration, in precedence order:
+
+1. :func:`inject` / :func:`clear` (same process only).
+2. ``RT_FAULTS`` — comma-separated ``point=schedule`` pairs, inherited by
+   spawned worker processes, e.g. ``RT_FAULTS=transfer.pull.recv=once``.
+3. The ``testing_faults`` config flag (same syntax), so a test cluster can
+   arm its children through ``system_config``.
 """
 
 from __future__ import annotations
 
+import os
 import random
 import threading
 from typing import Dict
 
 __all__ = ["FAULT_POINTS", "FaultInjected", "fault_point", "inject",
-           "clear", "hits", "fired"]
+           "clear", "configure", "hits", "fired", "active_points"]
 
 
 class FaultInjected(ConnectionError):
@@ -46,6 +53,36 @@ class FaultInjected(ConnectionError):
 
 # name -> where it fires
 FAULT_POINTS: Dict[str, str] = {
+    "transfer.server.send": (
+        "TransferServer response path, before any bytes of the payload "
+        "are written back — the puller sees a dead/early-EOF holder"),
+    "transfer.pull.connect": (
+        "pull_object leader, before connecting to the holder — "
+        "connection refused / holder unreachable"),
+    "transfer.pull.recv": (
+        "pull_object leader, after the request is sent and before the "
+        "response header is read — mid-pull holder death"),
+    "transfer.pull.dedup_wait": (
+        "pull_object follower, before waiting on the leader's event — "
+        "exercises the follower deadline/error propagation path"),
+    "gcs.rpc.send": (
+        "GcsClient, before dispatching any RPC to the control plane — "
+        "GCS unreachable"),
+    "raylet.lease.request": (
+        "NormalTaskSubmitter, before sending request_worker_lease(s) "
+        "to a raylet — raylet died before granting"),
+    "raylet.lease.return": (
+        "NormalTaskSubmitter, before sending return_worker to a raylet "
+        "— raylet died holding our lease"),
+    "worker.task.push": (
+        "NormalTaskSubmitter, before pushing a task to a leased worker "
+        "— worker crashed between lease grant and task delivery"),
+    "spill.write": (
+        "ShmObjectStore spill engine, before writing a spill file — "
+        "disk full / IO error on the spill path"),
+    "pubsub.publish": (
+        "Publisher.publish — the message is silently DROPPED (not "
+        "raised) to model a lost control-plane event"),
     "serve.llm.prefix_match": (
         "LLM engine admission, before walking the radix prefix cache — "
         "the lookup is skipped and the request degrades to a cold "
@@ -107,6 +144,36 @@ class _Schedule:
         return self.rng.random() < self.prob
 
 
+def _parse_spec_string(spec: str) -> Dict[str, "_Schedule"]:
+    """``"a=once,b=nth:3"`` -> {point: schedule}. Unknown point names are
+    rejected: a typo'd RT_FAULTS that arms nothing tests nothing."""
+    out: Dict[str, _Schedule] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, sep, sched = part.partition("=")
+        name = name.strip()
+        if not sep:
+            raise ValueError(
+                f"bad RT_FAULTS entry {part!r} (want point=schedule)")
+        if name not in FAULT_POINTS:
+            raise ValueError(
+                f"unknown fault point {name!r}; known: {sorted(FAULT_POINTS)}")
+        out[name] = _Schedule(sched.strip())
+    return out
+
+
+def configure(spec: str) -> None:
+    """Replace the armed set from a spec string (RT_FAULTS syntax)."""
+    global _ACTIVE
+    parsed = _parse_spec_string(spec)
+    with _lock:
+        _schedules.clear()
+        _schedules.update(parsed)
+        _ACTIVE = bool(_schedules)
+
+
 def inject(point: str, schedule: str = "once") -> None:
     """Arm one fault point in this process."""
     global _ACTIVE
@@ -141,6 +208,12 @@ def fired(point: str) -> int:
         return _fired_counts.get(point, 0)
 
 
+def active_points() -> Dict[str, str]:
+    """Currently armed {point: spec} (for diagnostics)."""
+    with _lock:
+        return {name: s.spec for name, s in _schedules.items()}
+
+
 def fault_point(name: str) -> None:
     """Declare a named fault point; raise if a fault is armed for it."""
     if not _ACTIVE:
@@ -154,3 +227,20 @@ def fault_point(name: str) -> None:
             return
         _fired_counts[name] = _fired_counts.get(name, 0) + 1
     raise FaultInjected(name)
+
+
+def _load_from_env() -> None:
+    """Arm from RT_FAULTS / testing_faults at import (each process)."""
+    spec = os.environ.get("RT_FAULTS", "")
+    if not spec:
+        # config is imported lazily: faults must import without it
+        try:
+            from ray_tpu_torch.common.config import GLOBAL_CONFIG
+            spec = GLOBAL_CONFIG.get("testing_faults") or ""
+        except Exception:  # noqa: BLE001 - config unavailable = faults off
+            spec = ""
+    if spec:
+        configure(spec)
+
+
+_load_from_env()

@@ -1,6 +1,7 @@
 """ray_tpu_torch ops against the JAX package on the CPU: rmsnorm,
 layernorm, RoPE and mha_reference on the same numpy inputs; plus the
-port's import hygiene (no jax, no ray_tpu, no top-level ml_dtypes).
+port's import hygiene (no jax, no ray_tpu, no top-level ml_dtypes, and no
+string that names a ray_tpu module, as a worker's ``-m`` argument would).
 
 Tolerances: f32 to 1e-6 (the same f32 formulas, summed in another order);
 bf16 to one bf16 ulp of the reference value (both frameworks compute in
@@ -9,6 +10,7 @@ step)."""
 
 import ast
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -131,6 +133,9 @@ def _port_files():
     return files
 
 
+_JAX_MODULE_NAME = re.compile(r"(?<![\w.])ray_tpu\.[A-Za-z_][\w.]*")
+
+
 def _forbidden_imports(path):
     tree = ast.parse(open(path).read(), path)
     bad = []
@@ -145,6 +150,12 @@ def _forbidden_imports(path):
             top = m.split(".")[0]
             if top in ("jax", "jaxlib", "ray_tpu"):
                 bad.append(m)
+    # a string naming a module of the JAX package (``"-m",
+    # "ray_tpu.raylet.worker_factory"``) imports it in another process,
+    # where no import statement shows it
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            bad += _JAX_MODULE_NAME.findall(node.value)
     # ml_dtypes may be imported only inside a function, never at the top
     for node in tree.body:
         if isinstance(node, (ast.Import, ast.ImportFrom)):
@@ -170,3 +181,14 @@ def test_hygiene_check_catches_offenders(tmp_path):
                  "def f():\n    import ml_dtypes\n")
     assert _forbidden_imports(str(p)) == ["jax.numpy", "ray_tpu.models",
                                           "ml_dtypes"]
+
+
+def test_hygiene_check_catches_module_names_in_strings(tmp_path):
+    p = tmp_path / "mod.py"
+    p.write_text(
+        "import subprocess, sys\n"
+        "subprocess.Popen([sys.executable, '-m',\n"
+        "                  'ray_tpu.raylet.worker_factory', 'sock'])\n"
+        "ok = ['ray_tpu_torch.core_worker.worker_main',\n"
+        "      'ray_tpu/ops/pallas/flash_attention.py:90']\n")
+    assert _forbidden_imports(str(p)) == ["ray_tpu.raylet.worker_factory"]
