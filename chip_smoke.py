@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: the quickest proof that
 the port builds, agrees with itself on the CPU, serves Llama-3-8B (also
-speculatively, with a 1B draft) and trains the 1B Llama, a Mixtral-shaped
-MoE and ViT-B/16.
+speculatively, with a 1B draft, from a GPU actor, and through Serve's HTTP
+proxy) and trains the 1B Llama, a Mixtral-shaped MoE and ViT-B/16.
 
     python3 chip_smoke.py
 
@@ -105,7 +105,20 @@ Phases (any failure exits non-zero, and no result line is printed):
      bit-equal on the consumer's GPU; GB/s and the store's device_bytes;
      (e) after the kills GPU is 1 again, and after shutdown() no process
      of the session is left;
-  10. the kernels line, then the result line.
+  10. Serve (ray_tpu_torch.serve): serve.start() and a num_gpus=1
+     replica of llm_app("8b", phase 5's paged engine): (a) phase 5's
+     prompts as concurrent HTTP POSTs with JSON bodies give phase 5's
+     paged tokens; (b) the same as SSE streams give (a)'s tokens, one data
+     event a token, pushed over the streaming-generator protocol; TTFT
+     p50 and tokens/s at the client; (c) one call through
+     get_deployment_handle gives phase 5's tokens; K3 launched once per
+     layer per decode step in the replica's process, K4 never; (d) the
+     PD app (build_pd_app) with the prefill and the decode replica on
+     half of the GPU each: a 1500-token prompt's tokens equal phase 5's,
+     one prefill and one KV handoff (a device object) a request, prefill
+     ms, handoff ms and KV bytes, K3 counted in the decode replica; after
+     shutdown() no process of the session is left;
+  11. the kernels line, then the result line.
 
 Needs one CUDA card, nvcc, and about 70 GB of device memory; no network.
 """
@@ -1993,6 +2006,257 @@ def runtime_check(prompts, max_tokens, want_outputs, in_process):
     return out
 
 
+# ------------------------------------------------------------- phase 10
+
+SERVE_ENGINE_KW = dict(kv_cache="paged", num_slots=4, max_seq=2048,
+                       kv_block_size=64)   # phase 5's paged engine
+
+
+class _LaunchCounts:
+    """Mixed into a served class whose engine is ``self.engine``: the
+    decode kernels' launch counts in the replica's own process, read
+    around a run (reset_counts, then counts)."""
+
+    def reset_counts(self):
+        from ray_tpu_torch.ops.decode_attention import decode_attention
+        from ray_tpu_torch.ops.paged_decode_attention import \
+            paged_decode_attention
+
+        paged_decode_attention.launches = 0
+        decode_attention.launches = 0
+        self._steps0 = self.engine.stats()["steps"]
+
+    def counts(self):
+        import torch
+
+        from ray_tpu_torch.ops.decode_attention import decode_attention
+        from ray_tpu_torch.ops.paged_decode_attention import \
+            paged_decode_attention
+
+        return {"launches": {
+            "paged_decode_attention": paged_decode_attention.launches,
+            "decode_attention": decode_attention.launches},
+            "decode_steps": self.engine.stats()["steps"] - self._steps0,
+            "n_layers": self.engine.config.n_layers,
+            "grant": [os.environ.get("CUDA_VISIBLE_DEVICES"),
+                      torch.cuda.device_count()],
+            "device": str(self.engine.device)}
+
+
+def _counted(cls):
+    """``cls`` with the launch counters; made here, in ``__main__``, so
+    the replica gets it by value."""
+    return type(cls.__name__, (_LaunchCounts, cls), {})
+
+
+def _http(url, body, headers=None, timeout=600):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers=headers or {})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, resp.read()
+
+
+def _sse(url, body, timeout=600):
+    """One streamed request, read event by event as it arrives: its
+    tokens, SSE data events, seconds to the first event and in all."""
+    import urllib.request
+
+    t = time.perf_counter()
+    req = urllib.request.Request(url, data=body,
+                                 headers={"accept": "text/event-stream"})
+    tokens, events, first, error = [], 0, None, False
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        assert resp.status == 200, resp.status
+        for line in resp:
+            line = line.strip()
+            if line == b"event: error":
+                error = True
+            if not line.startswith(b"data: "):
+                continue
+            data = line[len(b"data: "):]
+            if error:
+                raise RuntimeError(f"SSE error event: {data!r}")
+            if data == b"[DONE]":
+                break
+            if first is None:
+                first = time.perf_counter() - t
+            events += 1
+            tokens.append(json.loads(data))
+    return tokens, events, first, time.perf_counter() - t
+
+
+def _concurrently(fn, args):
+    import concurrent.futures
+
+    t = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(args)) as pool:
+        out = list(pool.map(fn, args))
+    return out, time.perf_counter() - t
+
+
+def serve_library_check(prompts, max_tokens, want_outputs, rates,
+                        model="8b", pd_prompt=1):
+    """Phase 10: Serve on the card, through the user's entry points:
+    ``serve.start`` and ``serve.run(llm_app(model, num_gpus=1 replica,
+    phase 5's paged engine))``. (a) ``prompts`` as concurrent HTTP POSTs
+    with JSON bodies: greedy tokens equal ``want_outputs`` (phase 5's);
+    (b) the same as SSE streams: tokens equal (a)'s, one data event a
+    token, TTFT and tokens/s at the client; (c) one call through
+    ``get_deployment_handle``; K3 counted in the replica's process around
+    (a)-(c); (d) ``build_pd_app`` with both fleets on half a GPU each:
+    ``prompts[pd_prompt]``'s tokens equal phase 5's, prefill ms, KV
+    handoff ms and bytes, K3 counted in the decode replica. ``rates``
+    are phase 5's and phase 9's readings, reported beside."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import api, serve
+    from ray_tpu_torch.serve import llm_pd
+    from ray_tpu_torch.serve.api import llm_app
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    out = {}
+    rt.init()
+    session = api._head["session_dir"]
+    try:
+        addr = serve.start(http_port=0, grpc_port=None)
+        url = f"http://{addr['http_host']}:{addr['http_port']}/llm"
+        app = llm_app(model, ray_actor_options={"num_gpus": 1},
+                      **SERVE_ENGINE_KW)
+        # the same Application with the launch counters mixed in
+        app.deployment = app.deployment.options(
+            func_or_class=_counted(LLMServer))
+        t = time.perf_counter()
+        handle = serve.run(app, name="llm")
+        status, body = _http(url, json.dumps(
+            {"prompt": prompts[0][:8], "max_tokens": 4}).encode())
+        assert status == 200 and len(json.loads(body)) == 4, (status, body)
+        out["replica_ready_s"] = time.perf_counter() - t
+        counter = handle.options(method_name="reset_counts")
+        rt.get(counter.remote(), timeout=60)
+
+        # (a) whole responses
+        bodies = [json.dumps({"prompt": p, "max_tokens": max_tokens})
+                  .encode() for p in prompts]
+        replies, wall = _concurrently(lambda b: _http(url, b), bodies)
+        assert all(s == 200 for s, _ in replies), [s for s, _ in replies]
+        whole = [json.loads(b) for _, b in replies]
+        tokens = sum(len(o) for o in whole)
+        out["whole"] = {"requests": len(prompts), "tokens": tokens,
+                        "wall_s": wall, "tokens_per_s": tokens / wall,
+                        "equal_to_phase_5": whole == want_outputs, **rates}
+        log("[10] (a) whole responses: " + json.dumps(out["whole"]))
+        assert whole == want_outputs, [first_divergence(a, b) for a, b in
+                                       zip(whole, want_outputs)]
+
+        # (b) SSE streams
+        streams, wall = _concurrently(lambda b: _sse(url, b), bodies)
+        streamed = [s[0] for s in streams]
+        tokens = sum(len(o) for o in streamed)
+        ttft = sorted(s[2] for s in streams)
+        proxy = rt.get(rt.get_actor("SERVE_PROXY").debug_state.remote(),
+                       timeout=60)
+        out["stream"] = {"requests": len(prompts), "tokens": tokens,
+                         "events": sum(s[1] for s in streams),
+                         "wall_s": wall, "tokens_per_s": tokens / wall,
+                         "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
+                         "ttft_max_ms": 1e3 * ttft[-1],
+                         "protocols": proxy["stream_protocols"],
+                         "equal_to_whole": streamed == whole, **rates}
+        log("[10] (b) SSE streams: " + json.dumps(out["stream"]))
+        assert streamed == whole, [first_divergence(a, b) for a, b in
+                                   zip(streamed, whole)]
+        assert out["stream"]["events"] == tokens, out["stream"]
+        assert proxy["stream_protocols"].get("generator") == len(prompts), \
+            proxy["stream_protocols"]
+
+        # (c) a handle
+        t = time.perf_counter()
+        got = rt.get(serve.get_deployment_handle("llm").remote(
+            prompts[0], max_tokens=max_tokens), timeout=600)
+        out["handle"] = {"seconds": time.perf_counter() - t,
+                         "equal_to_phase_5": got == want_outputs[0]}
+        assert got == want_outputs[0], first_divergence(got,
+                                                        want_outputs[0])
+        counts = rt.get(handle.options(method_name="counts").remote(),
+                        timeout=60)
+        out["replica"] = counts
+        out["proxy_stages"] = proxy["stages"]
+        log("[10] (c) handle: " + json.dumps(out["handle"])
+            + "; replica: " + json.dumps(counts)
+            + "; proxy stages: " + json.dumps(proxy["stages"]))
+        assert counts["grant"] == ["0", 1], counts
+        want = counts["decode_steps"] * counts["n_layers"]
+        assert counts["launches"]["paged_decode_attention"] == want > 0, \
+            counts
+        assert counts["launches"]["decode_attention"] == 0, counts
+        serve.delete("llm")
+        assert _available_gpu(rt, 1.0) == 1.0, "the replica's GPU"
+
+        # (d) the PD app, both fleets on half of the one GPU; its decode
+        # replicas get the launch counters (build_pd_app reads the module's
+        # DecodeServer when it is called)
+        t = time.perf_counter()
+        base = llm_pd.DecodeServer
+        llm_pd.DecodeServer = _counted(base)
+        try:
+            pd = llm_pd.build_pd_app(
+                model, name="pd", num_slots=4, max_seq=2048,
+                ray_actor_options={"num_gpus": 0.5})
+        finally:
+            llm_pd.DecodeServer = base
+        prefill = serve.get_deployment_handle("pd-prefill")
+        decode = serve.get_deployment_handle("pd-decode")
+        # both replicas up: a first request of its own, timed apart
+        first = rt.get(pd.remote(prompts[0][:8], max_tokens=4), timeout=900)
+        assert len(first) == 4, first
+        out["pd_ready_s"] = time.perf_counter() - t
+        rt.get(decode.options(method_name="reset_counts").remote(),
+               timeout=60)
+        t = time.perf_counter()
+        got = rt.get(pd.remote(prompts[pd_prompt], max_tokens=max_tokens),
+                     timeout=600)
+        wall = time.perf_counter() - t
+        pf = rt.get(prefill.options(method_name="stats").remote(),
+                    timeout=60)["prefills"]
+        dc_stats = rt.get(decode.options(method_name="stats").remote(),
+                          timeout=60)
+        counts = rt.get(decode.options(method_name="counts").remote(),
+                        timeout=60)
+        out["pd"] = {"model": model, "prompt_tokens": len(prompts[pd_prompt]),
+                     "tokens": len(got), "wall_s": wall,
+                     "prefill_ms": pf[-1]["ms"],
+                     "kv_bytes": pf[-1]["kv_bytes"],
+                     "kv_handoff_ms": dc_stats["kv_handoff_ms"][-1],
+                     "prefill_wait_ms": dc_stats["prefill_wait_ms"][-1],
+                     "kv_handoff_gb_s": pf[-1]["kv_bytes"] / 1e6
+                     / dc_stats["kv_handoff_ms"][-1],
+                     "prefills": len(pf),
+                     "handoffs": len(dc_stats["kv_handoff_ms"]),
+                     "decode_replica": counts,
+                     "equal_to_phase_5": got == want_outputs[pd_prompt]}
+        log("[10] (d) PD app: " + json.dumps(out["pd"]))
+        assert got == want_outputs[pd_prompt], first_divergence(
+            got, want_outputs[pd_prompt])
+        # one prefill and one handoff a request (the warm-up's and this)
+        assert out["pd"]["prefills"] == out["pd"]["handoffs"] == 2, out["pd"]
+        assert counts["grant"] == ["0", 1], counts
+        want = counts["decode_steps"] * counts["n_layers"]
+        assert counts["launches"]["paged_decode_attention"] == want > 0, \
+            counts
+        for name in ("pd", "pd-prefill", "pd-decode"):
+            serve.delete(name)
+        assert _available_gpu(rt, 1.0) == 1.0, "the PD replicas' GPU"
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while _session_processes(session) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    out["left_after_shutdown"] = _session_processes(session)
+    assert out["left_after_shutdown"] == [], out["left_after_shutdown"]
+    return out
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -2214,7 +2478,20 @@ def main() -> int:
             "gpu_after_kills", "left_after_shutdown")}))
     log(f"[9] phase time {report['runtime_s']:.1f} s")
 
-    # 10. the kernels line and the result line
+    # 10. Serve: phase 5's requests through the HTTP proxy (whole and SSE)
+    # and a handle, from a num_gpus=1 replica; the PD app on two half-GPU
+    # replicas
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    report["serve_lib"] = serve_library_check(
+        prompts, 32, report["serve"]["paged"]["outputs"],
+        {"phase_5_tokens_per_s": report["serve"]["paged"]["tokens_per_s"],
+         "phase_9_actor_tokens_per_s":
+             report["runtime"]["serve"]["tokens_per_s"]})
+    report["serve_lib_s"] = time.perf_counter() - t
+    log(f"[10] phase time {report['serve_lib_s']:.1f} s")
+
+    # 11. the kernels line and the result line
     k = report["kernels"]
     lines = []
     for name, kind_, src_kernel, replaces in (
@@ -2228,6 +2505,11 @@ def main() -> int:
         # phase 9: the 8b actor's serving run (K3) and the GPU task (K4),
         # each read around itself in its own process
         main_run += report["runtime"]["serve"]["launches"][src_kernel]
+        # phase 10: the Serve replica's run (a)-(c) and the PD decode
+        # replica's, each read around itself in its own process
+        main_run += report["serve_lib"]["replica"]["launches"][src_kernel]
+        main_run += report["serve_lib"]["pd"]["decode_replica"]["launches"][
+            src_kernel]
         extra = {}
         if kind_ == "slot":
             # K4 also runs the speculative engines' plain steps and every

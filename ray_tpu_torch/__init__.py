@@ -47,7 +47,8 @@ _SUBMODULES = {
 }
 # the JAX package's modules a later slice brings (common/status.py::WAITING)
 _WAITING = {"cluster_utils", "client", "graph", "dashboard", "job",
-            "autoscaler", "control_plane", "data", "tune"}
+            "autoscaler", "control_plane", "data", "tune", "collective",
+            "parallel", "train", "rl"}
 
 
 def resolve_device(device=None):

@@ -1,6 +1,6 @@
 """Deterministic fault injection at named points (port of
 ``ray_tpu/common/faults.py``, cut to the points the port declares: the
-runtime's get/put/lease path and the LLM engine).
+runtime's get/put/lease path, Serve and the LLM engine).
 
 A place that may fail declares a *named fault point*::
 
@@ -83,6 +83,22 @@ FAULT_POINTS: Dict[str, str] = {
     "pubsub.publish": (
         "Publisher.publish — the message is silently DROPPED (not "
         "raised) to model a lost control-plane event"),
+    "serve.replica.call": (
+        "Serve replica harness, before invoking the user callable for a "
+        "unary or micro-batched request — the whole call fails like a "
+        "torn transport; the proxy re-routes to a fresh replica"),
+    "serve.replica.stream": (
+        "Serve replica harness, before the streaming generator yields "
+        "its first item — mid-stream replica death; the proxy surfaces "
+        "a clean `event: error` SSE frame"),
+    "serve.proxy.write": (
+        "ProxyActor HTTP write path, before response/chunk bytes hit "
+        "the socket — the client connection tears mid-write; the "
+        "listener and other connections stay healthy"),
+    "serve.controller.probe": (
+        "ServeController health probe, before pinging a replica — a "
+        "lost/slow probe; flap damping requires failure_threshold "
+        "consecutive misses before ejecting the replica"),
     "serve.llm.prefix_match": (
         "LLM engine admission, before walking the radix prefix cache — "
         "the lookup is skipped and the request degrades to a cold "

@@ -123,9 +123,12 @@ WAITING = {
     "job": "queue A item 11, jobs",
     "autoscaler": "queue A item 11, the autoscaler",
     "cli": "queue A item 11, the CLI (python -m ray_tpu_torch start)",
-    "serve": "queue A item 5, the Serve control plane and proxy",
     "data": "queue A item 11, Data",
     "tune": "queue A item 11, Tune",
+    "parallel": "queue A item 12, parallel (meshes and sharding)",
+    "collective": "queue A item 12, collectives",
+    "train": "queue A item 12, Train",
+    "rl": "queue A item 14, RL",
 }
 
 

@@ -1862,10 +1862,15 @@ class CoreWorker:
             # owner-side recursive reconstruction: a freed intermediate
             # whose spec is still lineage-pinned is re-executed instead
             # of reported lost — the link that makes DEEP retry chains
-            # (consumer died after its args were freed) converge
+            # (consumer died after its args were freed) converge, as does
+            # a value whose spill file was lost. Not a PENDING one: a
+            # return whose task is still running (or is being
+            # reconstructed) is not in the store yet either, and a
+            # borrower asking for it early (a ref passed on before it
+            # resolved) must wait for it, not run the task a second time.
             with self._lineage_lock:
                 has_lineage = oid in self.lineage
-            if has_lineage:
+            if has_lineage and not self.memory_store.is_pending(oid):
                 ok = await loop.run_in_executor(
                     self._executor, lambda: self._try_reconstruct(oid))
                 recon = "resubmitted" if ok else "refused"

@@ -31,8 +31,9 @@ per step. On the card the engine turns TF32 off for matmuls and cuDNN
 ``torch.backends.cudnn.allow_tf32`` are process-wide settings), so f32
 products are full f32 as in the JAX package.
 
-Not ported yet, and refused with ``NotImplementedError``: the Serve
-proxy's ``Request`` bodies and ``LLMServer.stream`` (ROADMAP.md, queue A).
+``LLMServer`` wraps one engine as a Serve deployment: it takes token lists
+from handles and JSON bodies from the HTTP proxy, and streams tokens to
+the proxy's SSE path.
 """
 
 from __future__ import annotations
@@ -53,17 +54,6 @@ import torch
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models.convert import params_to
-
-_ROADMAP = {
-    "serve": "queue A item 5, LLMServer.stream and the Serve proxy",
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to ray_tpu_torch yet "
-        f"(ROADMAP.md, {_ROADMAP[item]})")
-
 
 @dataclasses.dataclass
 class _Request:
@@ -406,18 +396,23 @@ class LLMEngine:
         """Decode-side half of PD disaggregation: admit a request whose
         prompt KV a prefill replica computed. k/v are (layers,
         len(prompt), kv_heads, head_dim) host arrays (a JAX engine's
-        bf16 ``ml_dtypes`` arrays included), logits the last prompt
+        bf16 ``ml_dtypes`` arrays included) or tensors on any device (a
+        prefill replica's device object), logits the last prompt
         position's logits. Poll with :meth:`poll`."""
         req = self._new_request(prompt, max_tokens, temperature, eos_token,
                                 None, None)
-        k, v = np.asarray(k), np.asarray(v)
+        if not isinstance(k, torch.Tensor):
+            k, v = np.asarray(k), np.asarray(v)
+        if isinstance(logits, torch.Tensor):
+            logits = logits.float().cpu().numpy()
         c = self.config
         want = (c.n_layers, len(prompt), c.n_kv_heads, c.head_dim)
-        if k.shape != want or v.shape != want:
+        if tuple(k.shape) != want or tuple(v.shape) != want:
             # the caller's thread: the mismatch reaches the submitter
             # instead of failing the engine loop for every request
             raise ValueError(
-                f"prefilled KV shape {k.shape}/{v.shape} != expected {want}")
+                f"prefilled KV shape {tuple(k.shape)}/{tuple(v.shape)} != "
+                f"expected {want}")
         req.preload = {"k": k, "v": v, "logits": np.asarray(logits)}
         rid = uuid.uuid4().hex
         with self._pending_lock:
@@ -1072,8 +1067,13 @@ class LLMEngine:
 
 
 class LLMServer:
-    """Serve deployment wrapper: one engine per replica. Requests are
-    token-id lists (tokenization is a host-side pre/post step)."""
+    """Serve deployment wrapper: one engine per replica.
+
+    Deploy with ``serve.deployment(LLMServer).options(
+    ray_actor_options={"num_gpus": 1})`` (or ``serve.api.llm_app``), so the
+    replica holds a GPU lease; requests are token-id lists (tokenization
+    is a host-side pre/post step, kept off the replica).
+    """
 
     def __init__(self, model: str = "tiny", num_slots: int = 8,
                  max_seq: Optional[int] = None, **engine_kwargs):
@@ -1081,20 +1081,35 @@ class LLMServer:
                                 max_seq=max_seq, **engine_kwargs)
 
     @staticmethod
-    def _parse(prompt, kwargs: Dict[str, Any]):
-        if not isinstance(prompt, (list, tuple)):
-            raise _not_ported("proxy Request bodies", "serve")
-        return prompt, kwargs
+    def _parse(prompt_or_request, kwargs: Dict[str, Any]):
+        """Accept either direct args (handle calls) or a proxy Request whose
+        JSON body is {"prompt": [...], "max_tokens": n, ...}."""
+        from ray_tpu_torch.serve.proxy import Request
 
-    def __call__(self, prompt, **kwargs) -> List[int]:
-        prompt, kw = self._parse(prompt, kwargs)
+        if isinstance(prompt_or_request, Request):
+            body = prompt_or_request.json() or {}
+            merged = {"max_tokens": body.get("max_tokens", 64),
+                      "temperature": body.get("temperature", 0.0),
+                      "eos_token": body.get("eos_token"),
+                      "speculation": body.get("speculation"),
+                      # tenant identity for engine-level fair share:
+                      # body field wins, else the same x-client-id
+                      # header the proxy's admission control keys on
+                      "tenant": (body.get("tenant")
+                                 or prompt_or_request.headers.get(
+                                     "x-client-id"))}
+            return body.get("prompt", []), merged
+        return prompt_or_request, kwargs
+
+    def __call__(self, prompt_or_request, **kwargs) -> List[int]:
+        prompt, kw = self._parse(prompt_or_request, kwargs)
         return self.engine.generate(
             prompt, kw.get("max_tokens", 64), kw.get("temperature", 0.0),
             kw.get("eos_token"), speculation=kw.get("speculation"),
             tenant=kw.get("tenant"))
 
-    def submit(self, prompt, **kwargs) -> str:
-        prompt, kw = self._parse(prompt, kwargs)
+    def submit(self, prompt_or_request, **kwargs) -> str:
+        prompt, kw = self._parse(prompt_or_request, kwargs)
         return self.engine.submit(
             prompt, kw.get("max_tokens", 64), kw.get("temperature", 0.0),
             kw.get("eos_token"), speculation=kw.get("speculation"),
@@ -1107,10 +1122,38 @@ class LLMServer:
         return self.engine.cancel(request_id)
 
     def prefix_digest(self) -> List[int]:
+        """Exported through the Replica harness → controller →
+        router-refresh path so prefix-aware handles can route to the
+        replica holding the longest cached prefix."""
         return self.engine.prefix_digest()
 
-    def stream(self, prompt, **kwargs):
-        raise _not_ported("LLMServer.stream", "serve")
+    def stream(self, prompt_or_request, **kwargs):
+        """Generator-protocol streaming: tokens yield as the engine
+        produces them, and the proxy's SSE path pushes each one to the
+        client over the streaming-generator protocol — no proxy→replica
+        poll RPCs. The wait on the engine is replica-local (this generator
+        runs on the replica's executor thread, never an event loop).
+        ``submit``/``poll`` stay for pre-generator callers."""
+        prompt, kw = self._parse(prompt_or_request, kwargs)
+        request_id = self.engine.submit(
+            prompt, kw.get("max_tokens", 64), kw.get("temperature", 0.0),
+            kw.get("eos_token"), speculation=kw.get("speculation"),
+            tenant=kw.get("tenant"))
+        from ray_tpu_torch.serve.proxy import SSEBatch
+
+        while True:
+            st = self.engine.poll(request_id)
+            chunks = st["chunks"]
+            if len(chunks) == 1:
+                yield chunks[0]
+            elif chunks:
+                # burst since the last engine poll: ONE streamed item (one
+                # report RPC), fanned back out to per-token SSE events at
+                # the proxy
+                yield SSEBatch(chunks)
+            if st["done"]:
+                return
+            time.sleep(0.005)
 
     def stats(self) -> Dict[str, Any]:
         return self.engine.stats()

@@ -15,6 +15,8 @@ import torch
 from ray_tpu_torch.ops import decode_attention as tdec
 from ray_tpu_torch.ops import paged_decode_attention as tpaged
 
+from _torch_isolation import _module_isolation_guard  # noqa: F401
+
 B, H, KV, D, NB, BS, MBS = 6, 8, 2, 128, 20, 16, 4
 LENGTHS = [0, 1, BS, 37, MBS * BS, MBS * BS + 1]
 

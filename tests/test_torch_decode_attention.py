@@ -26,6 +26,8 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import decode_attention as tdec
 from ray_tpu_torch.ops import paged_decode_attention as tpaged
 
+from _torch_isolation import _module_isolation_guard  # noqa: F401
+
 B, H, KV, D, NB, BS, MBS = 6, 4, 2, 16, 11, 8, 3
 # lengths: empty slot, 1, one block, a non-multiple, full, stale (> MBS*bs)
 PAGED_LENGTHS = [0, 1, BS, 13, MBS * BS, MBS * BS + 1]

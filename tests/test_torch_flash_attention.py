@@ -31,6 +31,8 @@ from ray_tpu.ops.pallas.flash_attention import (flash_attention_bwd_pallas,
 from ray_tpu_torch.ops import attention as tattn
 from ray_tpu_torch.ops import flash_attention as tfa
 
+from _torch_isolation import _module_isolation_guard  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -8,6 +8,7 @@ digest with every optional feature off, speculation on a paged cache,
 bad prefix modes and chunk sizes raise ValueError as in the reference, and
 the default device is the card."""
 
+import json
 import threading
 import time
 
@@ -19,6 +20,8 @@ import torch
 from ray_tpu.models import llama as jllama
 from ray_tpu.serve.llm import LLMEngine as JaxEngine
 from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
+
+from _torch_isolation import _module_isolation_guard  # noqa: F401
 
 REQUESTS = [([5, 17, 99, 3, 42], 10), (list(range(2, 18)), 12),
             ([200, 1], 6), (list(range(30, 51)), 9), ([9] * 7, 14),
@@ -228,10 +231,16 @@ def test_server_surface(tparams):
         rid = srv.submit([1, 2], max_tokens=100)
         assert srv.cancel(rid)
         assert srv.stats()["kv_cache"] == "paged"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            srv({"prompt": [1, 2]})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            next(iter(srv.stream([1, 2])))
+        # a proxy Request's JSON body, and the SSE stream's items (single
+        # tokens or SSEBatch bursts), give the same greedy tokens
+        from ray_tpu_torch.serve.proxy import Request, SSEBatch
+
+        body = json.dumps({"prompt": [5, 17, 99], "max_tokens": 5}).encode()
+        assert srv(Request("POST", "/llm", {}, {}, body)) == out
+        streamed = []
+        for item in srv.stream([5, 17, 99], max_tokens=5):
+            streamed += item if isinstance(item, SSEBatch) else [item]
+        assert streamed == out
         with pytest.raises(ValueError, match="prefilled KV shape"):
             srv.engine.submit_prefilled([1], np.zeros((1, 1)),
                                         np.zeros((1, 1)), np.zeros(256))

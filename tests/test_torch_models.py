@@ -30,6 +30,8 @@ from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models import paged_cache as tpaged
 from ray_tpu_torch.models.convert import params_from_jax
 
+from _torch_isolation import _module_isolation_guard  # noqa: F401
+
 STEPS = 8
 
 

@@ -24,6 +24,8 @@ from ray_tpu_torch.ops import attention as tattn
 from ray_tpu_torch.ops import norms as tnorms
 from ray_tpu_torch.ops import rope as trope
 
+from _torch_isolation import _module_isolation_guard  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

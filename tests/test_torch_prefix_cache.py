@@ -34,6 +34,8 @@ from ray_tpu_torch.models import paged_cache as tpaged
 from ray_tpu_torch.models import prefix_cache as tprefix
 from ray_tpu_torch.serve.llm import LLMEngine
 
+from _torch_isolation import _module_isolation_guard  # noqa: F401
+
 # 24-token shared "system prompt" (3 blocks at kv_block_size=8) + tails
 SYSTEM = list(range(1, 25))
 TAILS = [[30, 31, 32, 33], [40, 41], [50, 51, 52, 53, 54, 55], [60],

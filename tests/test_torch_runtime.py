@@ -40,6 +40,8 @@ from ray_tpu_torch.rpc import schema as tschema
 from ray_tpu_torch.scheduling import cluster_state as tcs
 from ray_tpu_torch.scheduling import policies as tpol
 
+from _torch_isolation import _module_isolation_guard  # noqa: F401
+
 TIMEOUT = 60
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # above PID_MAX_LIMIT (2**22): never the pid of a live process
@@ -308,32 +310,49 @@ def test_neither_sweep_removes_the_other_packages_state(tmp_path):
     assert os.listdir(tmp_path) == []
 
 
-def test_waiting_parts_refuse_with_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 11"):
-        ray_tpu_torch.init(address="ray://localhost:1")
-    with pytest.raises(NotImplementedError, match="control-plane"):
-        ray_tpu_torch.init(system_config={"control_plane_procs": 1})
-    with pytest.raises(NotImplementedError, match="dashboard"):
-        ray_tpu_torch.init(dashboard=True)
-    with pytest.raises(NotImplementedError, match="the autoscaler"):
-        ray_tpu_torch.init(system_config={"autoscaling_enabled": True})
-    with pytest.raises(NotImplementedError, match="compiled graphs"):
-        ray_tpu_torch.remote(lambda: 1).bind()
-    from ray_tpu_torch.gcs.client import GcsClient
-
-    with pytest.raises(NotImplementedError, match="GCS failover"):
-        GcsClient(("127.0.0.1", 1), standby_addresses=[("127.0.0.1", 2)])
-    for name, item in (("cluster_utils", "item 11, cluster_utils"),
-                       ("job", "item 11, jobs"), ("data", "item 11, Data"),
-                       ("tune", "item 11, Tune")):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(ray_tpu_torch, name)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        ray_tpu_torch.serve.run
+def _refused_cli():
     cli = subprocess.run([sys.executable, "-m", "ray_tpu_torch", "start"],
                          env=dict(os.environ, PYTHONPATH=REPO), timeout=60,
                          capture_output=True, text=True)
-    assert cli.returncode != 0 and "item 11, the CLI" in cli.stderr
+    assert cli.returncode != 0
+    raise NotImplementedError(cli.stderr)
+
+
+def _failover_client():
+    from ray_tpu_torch.gcs.client import GcsClient
+
+    GcsClient(("127.0.0.1", 1), standby_addresses=[("127.0.0.1", 2)])
+
+
+# part -> (the call a user makes, what its refusal names)
+_WAITING_CASES = {
+    "client": (lambda: ray_tpu_torch.init(address="ray://localhost:1"),
+               "ROADMAP.md, queue A item 11"),
+    "control_plane": (lambda: ray_tpu_torch.init(
+        system_config={"control_plane_procs": 1}), "control-plane"),
+    "dashboard": (lambda: ray_tpu_torch.init(dashboard=True), "dashboard"),
+    "autoscaler": (lambda: ray_tpu_torch.init(
+        system_config={"autoscaling_enabled": True}), "the autoscaler"),
+    "graph": (lambda: ray_tpu_torch.remote(lambda: 1).bind(),
+              "compiled graphs"),
+    "gcs_failover": (_failover_client, "GCS failover"),
+    "cli": (_refused_cli, "item 11, the CLI"),
+    **{name: (lambda name=name: getattr(ray_tpu_torch, name), item)
+       for name, item in (
+           ("cluster_utils", "item 11, cluster_utils"),
+           ("job", "item 11, jobs"), ("data", "item 11, Data"),
+           ("tune", "item 11, Tune"),
+           ("parallel", "item 12, parallel"),
+           ("collective", "item 12, collectives"),
+           ("train", "item 12, Train"), ("rl", "item 14, RL"))},
+}
+
+
+@pytest.mark.parametrize("part", sorted(_WAITING_CASES))
+def test_waiting_parts_refuse_with_their_roadmap_item(part):
+    call, item = _WAITING_CASES[part]
+    with pytest.raises(NotImplementedError, match=item):
+        call()
     assert not ray_tpu_torch.is_initialized()
 
 
@@ -344,6 +363,73 @@ def rt():
     ray_tpu_torch.init(num_cpus=4, num_gpus=1)
     yield ray_tpu_torch
     ray_tpu_torch.shutdown()
+
+
+def test_owner_waits_for_a_return_a_borrower_asks_for_early(rt):
+    """A borrower that asks the owner for a return whose task is still
+    running waits for it: the owner re-runs only a freed object's task
+    (ray_tpu runs the task a second time; ROADMAP.md, places where the
+    port differs on purpose)."""
+    @rt.remote
+    class Slow:
+        def __init__(self):
+            self.calls = 0
+
+        def work(self):
+            self.calls += 1
+            time.sleep(1.0)
+            return self.calls
+
+        def count(self):
+            return self.calls
+
+    @rt.remote
+    def resolve(box):
+        import ray_tpu_torch as _rt
+
+        return _rt.get(box[0], timeout=TIMEOUT)
+
+    slow = Slow.remote()
+    ref = slow.work.remote()   # nested in a list: the task borrows it
+    assert rt.get(resolve.remote([ref]), timeout=TIMEOUT) == 1
+    assert rt.get(slow.count.remote(), timeout=TIMEOUT) == 1
+    rt.kill(slow)
+
+
+def test_owner_reconstructs_a_value_whose_spill_file_was_lost(rt):
+    """An owned return whose spill file is gone (the store dropped the
+    entry on a failed restore) is re-run by its owner when a borrower asks
+    for it: only a pending return makes the borrower wait."""
+    from ray_tpu_torch import api
+
+    @rt.remote
+    def make():
+        return b"spilled" * 4096
+
+    ref = make.remote()
+    assert rt.get(ref, timeout=TIMEOUT) == b"spilled" * 4096
+    store = api._core_worker().memory_store
+    with store._cv:
+        store._spill_locked(1 << 62)
+        path = store._entries[ref.object_id].spilled_path
+    assert path is not None
+    os.unlink(path)
+    assert store.get_if_ready(ref.object_id) is None  # entry dropped
+    assert not store.contains(ref.object_id)
+
+    @rt.remote
+    class Borrower:  # an actor: the re-run task needs a worker of its own
+        def resolve(self, box):
+            import ray_tpu_torch as _rt
+
+            return _rt.get(box[0], timeout=TIMEOUT)
+
+    borrower = Borrower.remote()
+    start = time.monotonic()
+    assert (rt.get(borrower.resolve.remote([ref]), timeout=TIMEOUT)
+            == b"spilled" * 4096)
+    assert time.monotonic() - start < TIMEOUT / 2  # re-run, not waited out
+    rt.kill(borrower)
 
 
 def test_session_dir_has_the_ports_prefix(rt):

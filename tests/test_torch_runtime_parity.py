@@ -18,6 +18,8 @@ import pytest
 from ray_tpu.models import llama as jllama
 from ray_tpu.serve.llm import LLMEngine as JaxEngine
 
+from _torch_isolation import _module_isolation_guard  # noqa: F401
+
 PACKAGES = ["ray_tpu", "ray_tpu_torch"]
 LABELS = {"rt.io/tpu-slice": "slice-a"}
 PROMPTS = [([5, 17, 99, 3, 42], 8), (list(range(2, 18)), 6), ([200, 1], 5)]

@@ -40,6 +40,8 @@ from ray_tpu_torch.models import speculation as tspec
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.serve.llm import LLMEngine
 
+from _torch_isolation import _module_isolation_guard  # noqa: F401
+
 JCFG = jllama.CONFIGS["debug"]
 TCFG = tllama.CONFIGS["debug"]
 

@@ -43,6 +43,8 @@ from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models import training as ttraining
 from ray_tpu_torch.models.convert import params_from_jax, train_state_from_jax
 
+from _torch_isolation import _module_isolation_guard  # noqa: F401
+
 STEPS = 5
 OPT = dict(learning_rate=1e-3, warmup_steps=2, decay_steps=20)
 
