@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: the quickest proof that
 the port builds, agrees with itself on the CPU, serves Llama-3-8B (also
-speculatively, with a 1B draft, from a GPU actor, and through Serve's HTTP
-proxy) and trains the 1B Llama, a Mixtral-shaped MoE and ViT-B/16.
+speculatively, with a 1B draft, from a GPU actor, through Serve's HTTP
+proxy, and as a two-stage pipeline of GPU actors over device channels)
+and trains the 1B Llama, a Mixtral-shaped MoE and ViT-B/16.
 
     python3 chip_smoke.py
 
@@ -59,8 +60,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      plain versions, in bf16 and f32, at the 1b_bench shapes (B=8, Hq=32,
      Hkv=8, S=2048, D=64, causal), at D=128, and at a ragged S=1000 with
      group 1, non-causal, at ViT-B/16's (B=256, H=12, S=197, D=64,
-     non-causal) and at the debug ViT's (B=8, H=4, S=17, D=16), row by
-     row under the tolerance
+     non-causal), at the debug ViT's (B=8, H=4, S=17, D=16) and at
+     phase 11's 8b pipeline stage's (B=1, Hq=32, Hkv=8, S=256, D=128,
+     causal), row by row under the tolerance
      ops/flash_attention.py states, each call launching exactly the
      kernels of its dtype, K1 and the f32 backward bit for bit equal to
      themselves in a second run; times of kernel (the bf16 backward with its
@@ -118,9 +120,29 @@ Phases (any failure exits non-zero, and no result line is printed):
      one prefill and one KV handoff (a device object) a request, prefill
      ms, handoff ms and KV bytes, K3 counted in the decode replica; after
      shutdown() no process of the session is left;
-  11. the kernels line, then the result line.
+  11. compiled graphs (ray_tpu_torch.graph) under a fresh init(), the free
+     space of /dev/shm printed first: (a) a channel-compiled DAG of two
+     num_gpus=0.5 actors over device channels carries the 8b activation
+     (1, 256, 4096) bf16 and a tensor of the 8b logits' size (1, 256,
+     128256) f32 through a known op in each stage: the driver gets a CUDA
+     tensor bit-equal to the ops run in the driver; ms and GB/s of one hop;
+     (b) build_llama_pipeline on phase 5's 8b weights cut to 4 layers, two
+     num_gpus=0.5 stages of 2 layers over device channels: one (1, 256)
+     microbatch's logits, a CUDA tensor, against the driver's own forward
+     of the same weights, every row within 2e-2 of its norm and the argmax
+     equal at every position (bit equality reported); the build and the
+     stages' readiness in seconds (each stage is created with a reference
+     to its shard in the object store, which init() sizes to hold both
+     shards); (c) eight microbatches in flight, then the same eight one
+     at a time, each equal to its single run, microbatches/s of both
+     (reported); K1 launched once per layer per microbatch in each stage's
+     own process, the plain attention never; (d) a stage that raises
+     surfaces as PipelineStageError within its deadline; after teardown()
+     GPU is 1 again, after shutdown() no process of the session is left;
+  12. the kernels line, then the result line.
 
-Needs one CUDA card, nvcc, and about 70 GB of device memory; no network.
+Needs one CUDA card, nvcc, about 70 GB of device memory and about 9 GB of
+/dev/shm (phase 11's object store and channels); no network.
 """
 
 import json
@@ -1044,6 +1066,7 @@ FLASH_CASES = [  # name, B, Hq, Hkv, S (= Sq = Skv), D, causal
     ("ragged", 2, 8, 8, 1000, 64, False),
     ("vit_b16", 256, 12, 12, 197, 64, False),  # phase 8d's
     ("vit_debug", 8, 4, 4, 17, 16, False),     # phase 8b's ViT
+    ("8b_stage", 1, 32, 8, 256, 128, True),    # phase 11's pipeline stage
 ]
 
 
@@ -2043,10 +2066,11 @@ class _LaunchCounts:
             "device": str(self.engine.device)}
 
 
-def _counted(cls):
-    """``cls`` with the launch counters; made here, in ``__main__``, so
-    the replica gets it by value."""
-    return type(cls.__name__, (_LaunchCounts, cls), {})
+def _counted(cls, counts=None):
+    """``cls`` with the launch counters (``counts``, by default the decode
+    kernels'); made here, in ``__main__``, so the replica or stage gets it
+    by value."""
+    return type(cls.__name__, (counts or _LaunchCounts, cls), {})
 
 
 def _http(url, body, headers=None, timeout=600):
@@ -2257,6 +2281,321 @@ def serve_library_check(prompts, max_tokens, want_outputs, rates,
     return out
 
 
+# ------------------------------------------------------------- phase 11
+# Compiled graphs: stage classes below are made remote by the graph API and
+# shipped to the stage processes by value (cloudpickle).
+
+PIPE_LAYERS = 4          # the 8b pipeline's depth: 2 layers a stage
+PIPE_SEQ = 256
+PIPE_MICROBATCHES = 8
+ACTIVATION_SHAPE = (1, PIPE_SEQ, 4096)   # 8b's hidden state between stages
+HOP_ITERS = {"activation": 20, "logits": 5}
+
+
+def hop_op(name, x):
+    """The known op of a phase 11 (a) stage."""
+    import torch
+
+    if name == "tanh3":
+        return torch.tanh(x) * 3
+    return x * x - 1
+
+
+class HopStage:
+    """A stage of phase 11 (a): one elementwise op on its own GPU."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def run(self, x):
+        return hop_op(self.name, x)
+
+
+class _StageCounts:
+    """Mixed into the pipeline's stage class (phase 11 (b), (c)): K1
+    launches and calls of the plain forward counted in the stage's own
+    process, read around a run (reset_counts, then counts, through the
+    stage harness's ``call``), and the wall-clock times of the stage's
+    start: its process, its __init__'s entry (the shard is in the process
+    by then) and end (the shard is on the card)."""
+
+    def __init__(self, *args, **kwargs):
+        self._wall = {"process": _process_start_wall(),
+                      "init_enter": time.time()}
+        super().__init__(*args, **kwargs)
+        self._wall["init_done"] = time.time()
+
+    def reset_counts(self):
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        if not hasattr(self, "_plain"):
+            plain, count = fa.flash_attention_fwd_reference, [0]
+
+            def counted(*args, **kw):
+                count[0] += 1
+                return plain(*args, **kw)
+
+            fa.flash_attention_fwd_reference = counted
+            self._plain = count
+        self._plain[0] = 0
+        self._items = 0
+        fa.flash_attention_fwd.launches = 0
+
+    def forward(self, x):
+        self._items = getattr(self, "_items", 0) + 1
+        return super().forward(x)
+
+    def counts(self):
+        import torch
+
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        return {"k1": fa.flash_attention_fwd.launches,
+                "plain_attention": self._plain[0],
+                "microbatches": self._items,
+                "layers": next(iter(self._params["layers"].values()))
+                .shape[0],
+                "pid": os.getpid(),
+                "grant": [os.environ.get("CUDA_VISIBLE_DEVICES"),
+                          torch.cuda.device_count()],
+                "device": str(self.device), "wall": self._wall}
+
+
+def _process_start_wall():
+    """This process's start, in wall-clock seconds (Linux: its start in
+    clock ticks after boot, /proc/self/stat field 22, plus the boot time
+    of /proc/stat, which has a resolution of one second)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(line.split()[1]) for line in f
+                     if line.startswith("btime"))
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def hop_check(rt, device, seed=11):
+    """Phase 11 (a): a channel-compiled DAG of two num_gpus=0.5 HopStage
+    actors over device channels carries the 8b activation (bf16) and a
+    tensor of the 8b logits' size (f32) through both ops: the driver gets
+    a CUDA tensor of the input's dtype, bit-equal to the ops run here. One
+    hop (driver to stage, stage to stage, stage to driver: three a
+    round trip) in ms and GB/s, from sequential round trips."""
+    import torch
+
+    from ray_tpu_torch.graph import InputNode
+
+    Hop = rt.remote(HopStage).options(num_gpus=0.5)
+    with InputNode() as inp:
+        dag = Hop.bind("sq").run.bind(Hop.bind("tanh3").run.bind(inp))
+    cap = PIPE_SEQ * 128256 * 4 + (1 << 20)
+    t = time.perf_counter()
+    compiled = dag.experimental_compile(channels=True, channel_kind="device",
+                                        channel_capacity=cap)
+    out = {"channel_capacity": cap}
+    try:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        for name, shape, dt in (
+                ("activation", ACTIVATION_SHAPE, torch.bfloat16),
+                ("logits", (1, PIPE_SEQ, 128256), torch.float32)):
+            x = torch.randn(*shape, generator=gen, device=device).to(dt)
+            got = compiled.execute(x).get(timeout_s=600)
+            if name == "activation":
+                out["ready_s"] = time.perf_counter() - t
+            want = hop_op("sq", hop_op("tanh3", x))
+            torch.cuda.synchronize()
+            rec = {"shape": list(shape), "dtype": str(dt).split(".")[1],
+                   "bytes": x.numel() * x.element_size(),
+                   "got_device": str(got.device),
+                   "got_dtype": str(got.dtype).split(".")[1],
+                   "bit_equal": got.dtype == dt and torch.equal(got, want)}
+            secs = []
+            for _ in range(HOP_ITERS[name]):
+                t0 = time.perf_counter()
+                compiled.execute(x).get(timeout_s=600)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            secs.sort()
+            hop = secs[len(secs) // 2] / 3
+            rec.update({"round_trips": len(secs),
+                        "round_trip_ms_p50": 1e3 * 3 * hop,
+                        "hop_ms": 1e3 * hop,
+                        "hop_gb_per_s": rec["bytes"] / hop / 1e9})
+            out[name] = rec
+            log(f"[11] (a) device channel, {name}: " + json.dumps(rec))
+            assert rec["bit_equal"] and got.is_cuda, rec
+            del x, got, want
+    finally:
+        compiled.teardown()
+    return out
+
+
+def pipeline_check(rt, params4, cfg4, device, seed=12):
+    """Phase 11 (b)-(d) on the 8b weights cut to PIPE_LAYERS layers:
+    build_llama_pipeline into two num_gpus=0.5 stages over device
+    channels; (b) one microbatch's logits against the driver's own
+    forward; (c) PIPE_MICROBATCHES microbatches in flight, then one at a
+    time, each equal to its single run; K1 counted in each stage's
+    process around (b) and (c); (d) a stage that raises, teardown."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.graph.compiled import PipelineStageError
+    from ray_tpu_torch.models import llama, pipeline
+
+    out = {}
+    logits_bytes = PIPE_SEQ * cfg4.vocab_size * 4
+    cap = logits_bytes + (1 << 20)
+    base = pipeline.LlamaPipelineStage
+    pipeline.LlamaPipelineStage = _counted(base, _StageCounts)
+    wall0 = time.time()
+    t = time.perf_counter()
+    try:
+        dag = pipeline.build_llama_pipeline(
+            cfg4, params4, 2, channel_kind="device", channel_capacity=cap,
+            stage_options={"num_gpus": 0.5, "max_concurrency": 2})
+    finally:
+        pipeline.LlamaPipelineStage = base
+    out["build_s"] = time.perf_counter() - t
+    out["channel_capacity"] = cap
+    try:
+        stages = dag._owned_actors
+        rng = np.random.default_rng(seed)
+        batches = [torch.from_numpy(rng.integers(
+            0, cfg4.vocab_size, (1, PIPE_SEQ)).astype(np.int64))
+            for _ in range(PIPE_MICROBATCHES + 1)]
+        gpu = {k: ({n: w.to(device) for n, w in v.items()}
+                   if k == "layers" else v.to(device))
+               for k, v in params4.items()}
+        # the driver's own forward of the same weights
+        with torch.inference_mode():
+            want = llama.forward(gpu, batches[0].to(device), cfg4)
+        del gpu
+        torch.cuda.empty_cache()
+        out["driver_forward_done_s"] = time.perf_counter() - t
+        # (b): the stages come up (each maps its shard from the object
+        # store), then the counts go to 0 just before the main path
+        rt.get([h.call.remote("reset_counts") for h in stages], timeout=1800)
+        out["ready_s"] = time.perf_counter() - t
+        log(f"[11] (b) build_llama_pipeline returned in {out['build_s']:.2f}"
+            f" s, its stages ready in {out['ready_s']:.2f} s")
+        got = dag.execute(batches[0]).get(timeout_s=600)
+        torch.cuda.synchronize()
+        excess = row_excess(got, want)
+        out["logits"] = {
+            "shape": list(got.shape), "dtype": str(got.dtype).split(".")[1],
+            "device": str(got.device),
+            "finite": bool(torch.isfinite(got).all()),
+            "row_excess": excess, "row_rtol": KV_ROW_RTOL,
+            "max_abs_err": (got - want).abs().max().item(),
+            "argmax_equal": bool(torch.equal(got.argmax(-1),
+                                             want.argmax(-1))),
+            "bit_equal": bool(torch.equal(got, want))}
+        log("[11] (b) 8b pipeline logits vs the driver's forward: "
+            + json.dumps(out["logits"]))
+        assert out["logits"]["shape"] == [1, PIPE_SEQ, cfg4.vocab_size]
+        assert got.is_cuda and out["logits"]["finite"], out["logits"]
+        assert excess <= 1.0 and out["logits"]["argmax_equal"], out["logits"]
+        del got, want
+
+        # (c): in flight, then one at a time
+        mbs = batches[1:]
+        t0 = time.perf_counter()
+        futs = [dag.execute(b) for b in mbs]
+        flight = [f.get(timeout_s=600) for f in futs]
+        torch.cuda.synchronize()
+        flight_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        single = []
+        for b in mbs:
+            single.append(dag.execute(b).get(timeout_s=600))
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        out["pipelining"] = {
+            "microbatches": len(mbs),
+            "in_flight_s": flight_s, "one_at_a_time_s": single_s,
+            "in_flight_per_s": len(mbs) / flight_s,
+            "one_at_a_time_per_s": len(mbs) / single_s,
+            "equal_to_single_run": [bool(torch.equal(a, b))
+                                    for a, b in zip(flight, single)]}
+        log("[11] (c) pipelining: " + json.dumps(out["pipelining"]))
+        assert all(out["pipelining"]["equal_to_single_run"]), \
+            out["pipelining"]
+        del flight, single
+        counts = rt.get([h.call.remote("counts") for h in stages],
+                        timeout=60)
+        for c in counts:
+            # seconds after the build began: the stage's process started,
+            # entered its __init__ with its shard, had it on the card
+            c["start_s"] = {k: v - wall0 for k, v in c.pop("wall").items()}
+        out["stages"] = counts
+        log("[11] (b)-(c) stages: " + json.dumps(counts))
+        items = 1 + 2 * len(mbs)
+        for c in counts:
+            assert c["grant"] == ["0", 1] and c["pid"] != os.getpid(), c
+            assert c["microbatches"] == items, (c, items)
+            assert c["k1"] == c["layers"] * items > 0, c
+            assert c["plain_attention"] == 0, c
+        assert sum(c["layers"] for c in counts) == cfg4.n_layers, counts
+
+        # (d): a stage that raises comes back typed within its deadline
+        t0 = time.perf_counter()
+        try:
+            dag.execute("not tokens").get(timeout_s=60)
+            raised = None
+        except PipelineStageError as e:
+            raised = type(e).__name__
+        out["stage_error"] = {"raised": raised,
+                              "seconds": time.perf_counter() - t0}
+        log("[11] (d) stage error: " + json.dumps(out["stage_error"]))
+        assert raised == "PipelineStageError", out["stage_error"]
+        assert out["stage_error"]["seconds"] < 60, out["stage_error"]
+    finally:
+        dag.teardown()
+    out["gpu_after_teardown"] = _available_gpu(rt, 1.0)
+    assert out["gpu_after_teardown"] == 1.0, out["gpu_after_teardown"]
+    return out
+
+
+def graph_check(params4, cfg4, device):
+    """Phase 11: compiled graphs on the card under a fresh init(): (a) the
+    device channel between two half-GPU actors, (b)-(d) the 8b pipeline;
+    after shutdown() no process of the session is left."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import api
+
+    out = {"dev_shm_free_bytes": shutil.disk_usage("/dev/shm").free}
+    log(f"[11] /dev/shm free: {out['dev_shm_free_bytes']} bytes")
+    # build_llama_pipeline puts each stage's shard into the object store
+    # and creates the stage with the reference: an arena that holds both
+    # shards lets each stage map its own, where the default 512 MiB would
+    # send it in 5 MiB chunk RPCs
+    out["stage_weight_bytes"] = sum(
+        w.numel() * w.element_size()
+        for v in params4.values()
+        for w in (v.values() if isinstance(v, dict) else [v]))
+    out["shm_store_bytes"] = 2 * out["stage_weight_bytes"]
+    assert out["dev_shm_free_bytes"] > out["shm_store_bytes"] + (1 << 30), out
+    log(f"[11] stage weights {out['stage_weight_bytes']} bytes, object "
+        f"store {out['shm_store_bytes']} bytes")
+    rt.init(system_config={"shm_store_bytes": out["shm_store_bytes"]})
+    session = api._head["session_dir"]
+    try:
+        out["hop"] = hop_check(rt, device)
+        out["gpu_after_hop_teardown"] = _available_gpu(rt, 1.0)
+        assert out["gpu_after_hop_teardown"] == 1.0, out
+        out["pipeline"] = pipeline_check(rt, params4, cfg4, device)
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while _session_processes(session) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    out["left_after_shutdown"] = _session_processes(session)
+    assert out["left_after_shutdown"] == [], out["left_after_shutdown"]
+    return out
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -2416,6 +2755,11 @@ def main() -> int:
         + json.dumps(sp["temperature"]))
     report["spec_s"] = time.perf_counter() - t
     log(f"[5c] phase time {report['spec_s']:.1f} s")
+    # phase 11's weights: these, cut to PIPE_LAYERS layers, on the host
+    cfg4 = dataclasses.replace(cfg, n_layers=PIPE_LAYERS, remat=False)
+    params4 = {k: ({n: w[:PIPE_LAYERS].cpu() for n, w in v.items()}
+                   if k == "layers" else v.cpu())
+               for k, v in params.items()}
     del params
     torch.cuda.empty_cache()
 
@@ -2491,7 +2835,17 @@ def main() -> int:
     report["serve_lib_s"] = time.perf_counter() - t
     log(f"[10] phase time {report['serve_lib_s']:.1f} s")
 
-    # 11. the kernels line and the result line
+    # 11. compiled graphs: the device channel between two half-GPU actors,
+    # then 8b (phase 5's weights, PIPE_LAYERS layers) as a two-stage
+    # pipeline of GPU actors over device channels
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    report["graph"] = graph_check(params4, cfg4, device)
+    del params4
+    report["graph_s"] = time.perf_counter() - t
+    log(f"[11] phase time {report['graph_s']:.1f} s")
+
+    # 12. the kernels line and the result line
     k = report["kernels"]
     lines = []
     for name, kind_, src_kernel, replaces in (
@@ -2538,7 +2892,11 @@ def main() -> int:
         "8x7b": report["train_moe"]["launches"],
         "vit_b16": report["train_vit"]["launches"],
         "1b_bench_nothing": report["remat_dots"]["nothing"]["launches"],
-        "1b_bench_dots": report["remat_dots"]["dots"]["launches"]},
+        "1b_bench_dots": report["remat_dots"]["dots"]["launches"],
+        # phase 11: K1 in the two stage processes, each read around (b)
+        # and (c) in its own process
+        "8b_pipeline": {"fwd": sum(c["k1"] for c in report["graph"][
+            "pipeline"]["stages"]), "bwd": 0, "dq": 0, "dkv": 0}},
         "float32": {
         "debug_llama": report["debug_train"]["launches"],
         "debug_moe": report["family_debug"]["moe"]["launches"],

@@ -43,12 +43,11 @@ _PG_SYMBOLS = {"placement_group", "remove_placement_group",
 _SUBMODULES = {
     "ops", "models", "serve", "bench", "common", "rpc", "gcs", "raylet",
     "object_store", "core_worker", "scheduling", "runtime_env", "util",
-    "api",
+    "api", "graph", "collective", "cluster_utils",
 }
 # the JAX package's modules a later slice brings (common/status.py::WAITING)
-_WAITING = {"cluster_utils", "client", "graph", "dashboard", "job",
-            "autoscaler", "control_plane", "data", "tune", "collective",
-            "parallel", "train", "rl"}
+_WAITING = {"client", "dashboard", "job", "autoscaler", "control_plane",
+            "data", "tune", "parallel", "train", "rl"}
 
 
 def resolve_device(device=None):

@@ -9,9 +9,10 @@ node's count, else ``common/gpu_detect.py`` counts them without
 initialising CUDA, and a ``num_gpus`` task or actor sees its grant as
 ``CUDA_VISIBLE_DEVICES``.
 
-What the JAX package's ``api.py`` also reaches (the ray:// client, the
-control-plane processes, the dashboard, compiled graphs) waits for a later
-slice and raises ``NotImplementedError`` naming its ROADMAP item
+``.bind`` on a remote function builds a compiled-graph node
+(``ray_tpu_torch.graph``). What the JAX package's ``api.py`` also reaches
+(the ray:// client, the control-plane processes, the dashboard) waits for
+a later slice and raises ``NotImplementedError`` naming its ROADMAP item
 (``common/status.py::WAITING``).
 """
 
@@ -273,7 +274,9 @@ class RemoteFunction:
         return _RemoteFunctionOptions(self, merged)
 
     def bind(self, *args, **kwargs):
-        raise not_ported("graph")
+        from ray_tpu_torch.graph.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs, self._options)
 
     def _invoke(self, args, kwargs, opts):
         import cloudpickle
@@ -318,7 +321,9 @@ class _RemoteFunctionOptions:
         return self._rf._invoke(args, kwargs, self._opts)
 
     def bind(self, *args, **kwargs):
-        raise not_ported("graph")
+        from ray_tpu_torch.graph.dag import FunctionNode
+
+        return FunctionNode(self._rf, args, kwargs, self._opts)
 
 
 def remote(*args, **options):

@@ -232,6 +232,12 @@ _D("enable_export_api", bool, False,
    "write versioned JSONL export events (actor/node/job/PG transitions)"
    " under <session>/export_events/ for external tooling")
 
+# --- compiled graphs ---------------------------------------------------------
+_D("pipeline_overlap", bool, True,
+   "overlap channel transfer with stage compute in compiled pipelines:"
+   " prefetch reads one item ahead and write-behind outputs on a writer"
+   " thread (off = strictly sequential read/compute/write per item)")
+
 # --- chaos / testing ---------------------------------------------------------
 _D("testing_rpc_failure", str, "", "method=prob fault injection spec, comma-sep")
 _D("testing_rpc_failure_seed", int, 0, "deterministic chaos seed")

@@ -83,6 +83,13 @@ FAULT_POINTS: Dict[str, str] = {
     "pubsub.publish": (
         "Publisher.publish — the message is silently DROPPED (not "
         "raised) to model a lost control-plane event"),
+    "graph.channel.write": (
+        "ShmChannel.write, before serializing the payload into the "
+        "mutable shm segment — a compiled-pipeline hop dies mid-stream "
+        "(both stage exec loops and the driver's execute() cross it)"),
+    "graph.channel.read": (
+        "ShmChannel.read, before waiting on the segment's version bump — "
+        "the reading end of a pipeline hop dies / loses the segment"),
     "serve.replica.call": (
         "Serve replica harness, before invoking the user callable for a "
         "unary or micro-batched request — the whole call fails like a "

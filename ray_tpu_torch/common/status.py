@@ -116,9 +116,7 @@ WAITING = {
     "control_plane": "queue A item 11, the control-plane processes "
                      "(RT_control_plane_procs=1)",
     "gcs_failover": "queue A item 11, GCS failover (gcs/failover.py)",
-    "cluster_utils": "queue A item 11, cluster_utils.Cluster",
     "client": "queue A item 11, the ray:// client",
-    "graph": "queue A item 11, compiled graphs (.bind, graph/)",
     "dashboard": "queue A item 11, the dashboard",
     "job": "queue A item 11, jobs",
     "autoscaler": "queue A item 11, the autoscaler",
@@ -126,7 +124,10 @@ WAITING = {
     "data": "queue A item 11, Data",
     "tune": "queue A item 11, Tune",
     "parallel": "queue A item 12, parallel (meshes and sharding)",
-    "collective": "queue A item 12, collectives",
+    "collective": "queue A item 12, the NCCL backend of collectives (the "
+                  "JAX package's in-program xla backend, xla_group.py)",
+    "collective_quantized": "queue A item 12, quantized collectives "
+                            "(block-int8 allreduce, quantization.py)",
     "train": "queue A item 12, Train",
     "rl": "queue A item 14, RL",
 }

@@ -11,7 +11,6 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 from ray_tpu_torch.common.ids import ActorID
-from ray_tpu_torch.common.status import not_ported
 
 
 class ActorMethod:
@@ -79,8 +78,11 @@ class ActorClass:
         return ActorClassOptions(self, merged)
 
     def bind(self, *args, **kwargs):
-        """Compiled-graph entry (reference: dag API); not ported yet."""
-        raise not_ported("graph")
+        """Compiled-graph entry (reference: dag API); see
+        ray_tpu_torch.graph."""
+        from ray_tpu_torch.graph.dag import ClassNode
+
+        return ClassNode(self, args, kwargs, self._default_options)
 
     def _create(self, args, kwargs, opts):
         from .worker import CoreWorker
@@ -132,7 +134,9 @@ class ActorClassOptions:
         return self._actor_class._create(args, kwargs, self._opts)
 
     def bind(self, *args, **kwargs):
-        raise not_ported("graph")
+        from ray_tpu_torch.graph.dag import ClassNode
+
+        return ClassNode(self._actor_class, args, kwargs, self._opts)
 
 
 def _resources_from_options(opts: Dict[str, Any], for_actor: bool = False) -> Dict[str, float]:

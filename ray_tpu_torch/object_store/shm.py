@@ -21,24 +21,31 @@ from ray_tpu_torch.common.status import SpillFailedError
 _SRC_DIR = os.path.join(os.path.dirname(__file__), "native")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
-_SO_PATH = os.path.join(_BUILD_DIR, "libshm_store.so")
 _build_lock = threading.Lock()
 _lib = None
 
 
-def _ensure_built() -> str:
-    src = os.path.join(_SRC_DIR, "shm_store.cc")
+def build_native(src_name: str, so_name: str) -> str:
+    """``native/<src_name>`` built by g++ into ``_build/<so_name>`` unless
+    that is newer than the source; returns the library's path. Also
+    builds the compiled graphs' channel (``graph/channels.py``)."""
+    src = os.path.join(_SRC_DIR, src_name)
+    so_path = os.path.join(_BUILD_DIR, so_name)
     with _build_lock:
-        if (not os.path.exists(_SO_PATH)
-                or os.path.getmtime(_SO_PATH) < os.path.getmtime(src)):
+        if (not os.path.exists(so_path)
+                or os.path.getmtime(so_path) < os.path.getmtime(src)):
             os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = _SO_PATH + f".tmp.{os.getpid()}"
+            tmp = so_path + f".tmp.{os.getpid()}"
             subprocess.run(
                 ["g++", "-O2", "-fPIC", "-shared", "-std=c++17",
                  "-o", tmp, src, "-lpthread", "-lrt"],
                 check=True, capture_output=True)
-            os.replace(tmp, _SO_PATH)  # atomic: concurrent builders race ok
-    return _SO_PATH
+            os.replace(tmp, so_path)  # atomic: concurrent builds race ok
+    return so_path
+
+
+def _ensure_built() -> str:
+    return build_native("shm_store.cc", "libshm_store.so")
 
 
 def _load():

@@ -189,6 +189,40 @@ def test_quarter_capacity_drops_as_jax():
     np.testing.assert_allclose(tloss.item(), float(jloss), rtol=1e-5)
 
 
+@pytest.mark.parametrize("layer", [0, 1])
+def test_per_expert_drops_match_jax_at_8_experts(monkeypatch, layer):
+    """8x7b's router shape (8 experts, top-2, capacity factor 1.25) at the
+    debug width, 256 tokens: each expert's dropped assignments (those the
+    router sent it beyond its slots) equal ``ray_tpu.models.moe``'s."""
+    jc, tc = _configs(n_experts=8, top_k=2, capacity_factor=1.25)
+    # seeded weights of the JAX init's shapes (that init compiles for
+    # seconds at 8 experts), converted for the port
+    rng = np.random.default_rng(5)
+    jp = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(0.3 * rng.standard_normal(a.shape), a.dtype),
+        jax.eval_shape(lambda: jmoe.init_params(jc, jax.random.key(0))))
+    tp = params_from_jax(_np_tree(jp))
+    # activations sharing a direction, as a trained model's do: the
+    # router favours some experts and drops at its capacity
+    xr = np.random.default_rng(5 + layer)
+    x = (xr.standard_normal((4, 64, 64))
+         + 2.0 * xr.standard_normal(64)).astype(np.float32)
+    jlayer = jax.tree_util.tree_map(lambda a: a[layer], jp["layers"])
+    _, jm, jidx, jdisp, _ = _jax_routing(monkeypatch, x, jlayer, jc)
+    tlayer = {k: v[layer] for k, v in tp["layers"].items()}
+    with torch.no_grad():
+        _, _, _, tidx, tdisp, _, _ = tmoe._route(
+            torch.from_numpy(x).reshape(256, 64), tlayer["router"], tc)
+
+    def drops(idx, dispatch):
+        routed = np.bincount(np.asarray(idx).reshape(-1), minlength=8)
+        return routed - np.asarray(dispatch).sum(axis=(0, 2))
+
+    want = drops(jidx, jdisp)
+    np.testing.assert_array_equal(drops(tidx.numpy(), tdisp.numpy()), want)
+    assert 0 < want.sum() == round(float(jm["dropped"]) * 256 * 2)
+
+
 def test_single_expert_equals_dense_llama():
     """E=1, K=1 with room for every token: the MoE layer is the dense
     FFN, so the logits equal the port's ``llama.forward`` on the same

@@ -194,3 +194,40 @@ def test_hygiene_check_catches_module_names_in_strings(tmp_path):
         "ok = ['ray_tpu_torch.core_worker.worker_main',\n"
         "      'ray_tpu/ops/pallas/flash_attention.py:90']\n")
     assert _forbidden_imports(str(p)) == ["ray_tpu.raylet.worker_factory"]
+
+
+def test_native_loaders_build_the_ports_own_sources():
+    """Each C++ native the port loads is its own copy under
+    ray_tpu_torch/, built into ray_tpu_torch/_build/ (never beside the
+    JAX package's sources)."""
+    from ray_tpu_torch.graph import channels
+    from ray_tpu_torch.object_store import shm
+
+    port = os.path.join(REPO, "ray_tpu_torch")
+    assert os.path.commonpath([shm._SRC_DIR, port]) == port
+    for src in ("shm_channel.cc", "shm_store.cc"):
+        assert os.path.isfile(os.path.join(shm._SRC_DIR, src))
+    for lib in (channels._load(), shm._load()):
+        assert os.path.dirname(lib._name) == os.path.join(port, "_build")
+
+
+def test_new_modules_import_without_jax_or_ray_tpu():
+    """The modules of the graph slice load in a fresh interpreter with no
+    jax and nothing of ray_tpu in ``sys.modules``."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import ray_tpu_torch.graph, ray_tpu_torch.collective\n"
+            "import ray_tpu_torch.cluster_utils, ray_tpu_torch.util\n"
+            "import ray_tpu_torch.models.pipeline\n"
+            "from ray_tpu_torch.util import ActorPool, Queue, state, "
+            "profiling\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ray_tpu')]\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
