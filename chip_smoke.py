@@ -3,7 +3,8 @@
 the port builds, agrees with itself on the CPU, serves Llama-3-8B (also
 speculatively, with a 1B draft, from a GPU actor, through Serve's HTTP
 proxy, and as a two-stage pipeline of GPU actors over device channels)
-and trains the 1B Llama, a Mixtral-shaped MoE and ViT-B/16.
+and trains the 1B Llama (also from a Train worker on a mesh, with
+checkpoints and a failure restart), a Mixtral-shaped MoE and ViT-B/16.
 
     python3 chip_smoke.py
 
@@ -139,10 +140,40 @@ Phases (any failure exits non-zero, and no result line is printed):
      own process, the plain attention never; (d) a stage that raises
      surfaces as PipelineStageError within its deadline; after teardown()
      GPU is 1 again, after shutdown() no process of the session is left;
-  12. the kernels line, then the result line.
+  12. Train (ray_tpu_torch.train, ray_tpu_torch.parallel) under a fresh
+     init(), the free disk space of the checkpoint directory printed
+     first: (a) a JaxTrainer gang of one GPU worker (use_gpu=True,
+     max_failures=1, num_to_keep=1) joins an NCCL process group of world 1
+     and a mesh of MeshConfig() on "cuda" (the code a multi-GPU gang runs,
+     with no traffic between ranks), shards phase 8's seeded 1b_bench
+     weights with shard_pytree under FSDP_TP_RULES, and trains 6 steps at
+     phase 8's batch, full width and depth, with a checkpoint (params and
+     moments, torch.distributed.checkpoint) every 2 steps; its first
+     attempt raises after reporting step 5, and the restart resumes from
+     step 4's checkpoint: the restored bits equal the saved ones (one
+     sha256 over every leaf's bytes in key order), the resumed step-5 loss
+     equals the first attempt's bit for bit, the first loss is within 1e-4
+     relative of phase 8's (bit equality reported) and the first four
+     within 5e-3 (the first step's learning rate is 0, so steps 3-4 read
+     the sharded step's first updates; steps 5-6 are reported, as the
+     bf16 backward's dQ order moves phase 8 itself by up to 6.8e-3 there
+     from run to run), losses finite and falling, Result at step 6 with step 6's checkpoint
+     the only one left, K1 and flash_bwd_kernel launched in the worker's
+     process as phase 8 counts them (no K2a, K2b), GPU 1 again after the
+     gang; step ms, tokens/s, restart s, checkpoint write and restore s
+     and bytes; (b) then 3 steps with sp_axis="sp" on the same mesh: the
+     first two losses and gradient norms (the weights as built) within
+     1e-3 of (a)'s, the third loss (after the sp path's first update)
+     within 5e-3 (bit equality reported), the same launches — at sp = 1 the ring has one chunk, so the rotation and the
+     causal chunk skip are verified on the CPU only
+     (tests/test_torch_parallel.py); (c) after shutdown() no process of
+     the session is left;
+  13. the kernels line, then the result line.
 
-Needs one CUDA card, nvcc, about 70 GB of device memory and about 9 GB of
-/dev/shm (phase 11's object store and channels); no network.
+Needs one CUDA card, nvcc, about 70 GB of device memory, about 9 GB of
+/dev/shm (phase 11's object store and channels) and about 13 GB of disk
+under $TMPDIR (phase 12's checkpoints: two of about 6.2 GB at once); no
+network.
 """
 
 import json
@@ -2596,6 +2627,400 @@ def graph_check(params4, cfg4, device):
     return out
 
 
+# ------------------------------------------------------------- phase 12
+# Train: train_1b_worker is made remote by the trainer and shipped to the
+# worker by value (cloudpickle); it writes one JSON line per event into
+# the run's storage, which this script reads after fit().
+
+TRAIN_STEPS = 6          # steps of the gang's run (phase 8's count)
+CKPT_EVERY = 2           # a checkpoint after every second step
+FAIL_AFTER = 5           # the first attempt raises after reporting this step
+SP_STEPS = 3             # steps of the sp_axis run: the first two take
+                         # the weights as built (the first step's learning
+                         # rate is 0), the third those after an update
+# (b)'s losses and gradient norms of the weights as built (steps 1-2)
+# against (a)'s: the same forward, and gradients apart only by the bf16
+# backward's order of dQ adds
+SP_RTOL = 1e-3
+# A loss read after an update, against another run's at the same step. The
+# bf16 backward adds dQ in no fixed order, and Adam's first update is about
+# lr * sign(g), so a gradient element near zero may flip: step 3's loss
+# differed by up to 8.8e-4 relative between runs in this PR's chip calls,
+# and the training run amplifies it further, to 6.8e-3 at step 6 (PERF.md,
+# PR 13). (a) is held to phase 8 over its first PHASE8_STEPS steps (steps
+# 3-4 read the sharded step's first updates), steps 5-6 are reported; (b)'s
+# third step is held to (a)'s. The first update moves the loss by about 40%,
+# so a dropped or misdirected gradient of a large leaf still fails.
+PHASE8_STEPS = 4
+UPDATED_RTOL = 5e-3
+
+
+def _tree_fingerprint(tree):
+    """The sha256 of a tree's bits, in key order: every leaf's name, dtype,
+    shape and local shard's bytes (a permuted or compensating restore
+    gives another digest)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(f"{prefix}/{k}", node[k])
+            return
+        t = node.to_local() if hasattr(node, "to_local") else node
+        t = t.detach().contiguous().reshape(-1)
+        h.update(f"{prefix}:{t.dtype}:{tuple(node.shape)};".encode())
+        b = t.view(torch.uint8)
+        for i in range(0, b.numel(), 1 << 28):
+            h.update(b[i:i + (1 << 28)].cpu().numpy().tobytes())
+
+    walk("", tree)
+    return h.hexdigest()
+
+
+def train_1b_worker(config):
+    """Phase 12's ``train_loop_per_worker`` (one GPU worker): join the
+    process group, build the mesh, shard the seeded weights, train with
+    checkpoints every CKPT_EVERY steps; the first attempt raises after
+    reporting step FAIL_AFTER, the second restores the latest checkpoint
+    and finishes, then (b) runs SP_STEPS steps with sp_axis="sp". The
+    state is fingerprinted at the checkpoint the restart resumes from and
+    after the restore."""
+    import dataclasses
+    import json
+    import os
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import bench, train
+    from ray_tpu_torch.models import llama, training
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh, shard_pytree
+    from ray_tpu_torch.parallel.sharding import FSDP_TP_RULES
+
+    t_start = time.time()
+    ctx = train.get_context()
+    ck = ctx.get_checkpoint()
+    attempt = 1 if ck is None else 2
+    resume_step = (config["fail_after"] // config["ckpt_every"]) \
+        * config["ckpt_every"]
+    log_path = os.path.join(ctx.get_storage_path(), "events.jsonl")
+
+    def record(**kw):
+        with open(log_path, "a") as f:
+            f.write(json.dumps(dict(kw, attempt=attempt, t=time.time()))
+                    + "\n")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    ctx.init_jax_distributed()
+    mesh = make_mesh(MeshConfig(), device_type=config["device_type"])
+    dev = torch.device(config["device_type"])
+    record(kind="start", t_start=t_start, backend=dist.get_backend(),
+           world=dist.get_world_size(), mesh_shape=list(mesh.shape),
+           mesh_names=list(mesh.mesh_dim_names),
+           visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+           resume=ck.path if ck is not None else None)
+    cfg = bench.CONFIGS[config["model"]]
+    rules = FSDP_TP_RULES
+    axes = llama.param_logical_axes(cfg)
+    opt = training.OptimizerConfig(warmup_steps=1, decay_steps=1000).make()
+
+    def build(c):
+        # phase 8's weights and batch: bench.run draws both from one
+        # generator of the seed, the weights first
+        gen = torch.Generator(device=dev).manual_seed(config["seed"])
+        params = llama.init_params(c, gen, dev)
+        tokens = torch.randint(0, c.vocab_size,
+                               (config["batch"], config["seq"]),
+                               generator=gen, device=dev, dtype=torch.int32)
+        sharded = shard_pytree(params, axes, mesh, rules)
+        del params
+        state, _ = training.init_train_state(
+            lambda g: sharded, opt, gen, param_axes=axes, mesh=mesh,
+            rules=rules)
+        step = training.make_train_step(
+            lambda p, b: llama.loss_fn(p, b, c, rules, mesh=mesh), opt,
+            mesh, rules)
+        return state, step, {"tokens": tokens}
+
+    def ckpt_tree(state):
+        return {"params": state.params, "mu": state.opt_state.mu,
+                "nu": state.opt_state.nu,
+                "counts": torch.tensor([state.step,
+                                        state.opt_state.adam_count,
+                                        state.opt_state.schedule_count])}
+
+    state, step, batch = build(cfg)
+    if ck is not None:
+        target = ckpt_tree(state)
+        sync()
+        t = time.perf_counter()
+        train.Checkpoint(ck.path).to_pytree(target)
+        sync()
+        restore_s = time.perf_counter() - t
+        counts = [int(c) for c in target["counts"]]
+        state.step = counts[0]
+        state.opt_state.adam_count = counts[1]
+        state.opt_state.schedule_count = counts[2]
+        record(kind="restore", path=ck.path, step=state.step,
+               seconds=restore_s, bytes=_dir_bytes(ck.path),
+               fingerprint=_tree_fingerprint(
+                   {k: v for k, v in target.items() if k != "counts"}))
+    reset_flash_launches()
+    while True:
+        sync()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])           # waits for the step
+        ms = 1e3 * (time.perf_counter() - t)
+        n = state.step
+        record(kind="step", step=n, loss=loss, ms=ms,
+               grad_norm=float(m["grad_norm"]), launches=flash_launches())
+        ckpt = None
+        if n % config["ckpt_every"] == 0:
+            sync()
+            t = time.perf_counter()
+            ckpt = train.Checkpoint.from_pytree(train.checkpoint_dir(n),
+                                                ckpt_tree(state))
+            record(kind="checkpoint", step=n, path=ckpt.path,
+                   seconds=time.perf_counter() - t,
+                   bytes=_dir_bytes(ckpt.path),
+                   fingerprint=_tree_fingerprint(
+                       {k: v for k, v in ckpt_tree(state).items()
+                        if k != "counts"}) if n == resume_step else None)
+        metrics = {"step": n, "loss": loss}
+        if n == config["steps"]:
+            # (b): the sp_axis path on the same mesh, weights and batch
+            del state, step, m
+            torch.cuda.empty_cache() if dev.type == "cuda" else None
+            sp_state, sp_step, sp_batch = build(
+                dataclasses.replace(cfg, sp_axis="sp"))
+            reset_flash_launches()
+            for _ in range(config["sp_steps"]):
+                sync()
+                t = time.perf_counter()
+                sp_state, sm = sp_step(sp_state, sp_batch)
+                record(kind="sp_step", step=sp_state.step,
+                       loss=float(sm["loss"]),
+                       ms=1e3 * (time.perf_counter() - t),
+                       grad_norm=float(sm["grad_norm"]),
+                       launches=flash_launches())
+            del sp_state, sp_step
+        train.report(metrics, checkpoint=ckpt)
+        if attempt == 1 and n == config["fail_after"]:
+            record(kind="fail", step=n)
+            raise RuntimeError(f"planted failure after step {n}")
+        if n == config["steps"]:
+            break
+
+
+def _dir_bytes(path):
+    """Bytes of a checkpoint's files (the manager's _metrics.json aside)."""
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files
+               if f != "_metrics.json")
+
+
+def train_library_check(phase8_losses, model="1b_bench", batch=8, seq=2048,
+                        device_type="cuda", use_gpu=True,
+                        expect_launches=True, smi=""):
+    """Phase 12: Train on the card under a fresh init(): (a) a JaxTrainer
+    gang of one GPU worker trains ``model`` TRAIN_STEPS steps on a mesh of
+    one rank (an NCCL process group of world 1: the code a multi-GPU gang
+    takes, with no traffic between ranks), checkpointing every CKPT_EVERY
+    steps; its first attempt fails after step FAIL_AFTER, and the restart
+    resumes from the latest checkpoint; (b) then SP_STEPS steps with
+    sp_axis="sp" — at sp = 1 the ring has one chunk, so the rotation and
+    the causal chunk skip are verified on the CPU only
+    (tests/test_torch_parallel.py); (c) after shutdown() no process of
+    the session is left. The checkpoints' directory is removed however
+    the phase ends."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="rtt_train_")
+    try:
+        return _train_checks(root, phase8_losses, model, batch, seq,
+                             device_type, use_gpu, expect_launches, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _train_checks(root, phase8_losses, model, batch, seq, device_type,
+                  use_gpu, expect_launches, smi):
+    """Phase 12 with its checkpoints under ``root``."""
+    import json as _json
+    import math
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import api, bench, train
+
+    cfg = bench.CONFIGS[model]
+    out = {"storage": root, "disk_free_bytes": shutil.disk_usage(root).free}
+    log(f"[12] checkpoint storage {root}: {out['disk_free_bytes']} bytes "
+        f"free | {smi}")
+    # params and two moments, in the weights' dtype; two on disk at once
+    import torch
+
+    ckpt_est = 3 * cfg.num_params() * torch.empty(
+        0, dtype=cfg.dtype).element_size()
+    assert out["disk_free_bytes"] > 2.5 * ckpt_est, (out, ckpt_est)
+    rt.init()
+    session = api._head["session_dir"]
+    try:
+        out["gpu_before"] = rt.available_resources().get("GPU", 0.0)
+        t = time.perf_counter()
+        result = train.JaxTrainer(
+            train_1b_worker,
+            train_loop_config={
+                "model": model, "batch": batch, "seq": seq, "seed": 0,
+                "steps": TRAIN_STEPS, "ckpt_every": CKPT_EVERY,
+                "fail_after": FAIL_AFTER, "sp_steps": SP_STEPS,
+                "device_type": device_type},
+            scaling_config=train.ScalingConfig(num_workers=1,
+                                               use_gpu=use_gpu),
+            run_config=train.RunConfig(
+                name=model, storage_path=root,
+                checkpoint_config=train.CheckpointConfig(num_to_keep=1),
+                failure_config=train.FailureConfig(max_failures=1)),
+        ).fit(timeout_s=900)
+        out["fit_s"] = time.perf_counter() - t
+        if use_gpu:
+            out["gpu_after"] = _available_gpu(rt, out["gpu_before"])
+            assert out["gpu_after"] == out["gpu_before"] == 1.0, out
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while _session_processes(session) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    out["left_after_shutdown"] = _session_processes(session)
+    assert out["left_after_shutdown"] == [], out["left_after_shutdown"]
+
+    with open(os.path.join(result.path, "events.jsonl")) as f:
+        events = [_json.loads(line) for line in f]
+    ev = lambda kind, attempt=None: [  # noqa: E731
+        e for e in events if e["kind"] == kind
+        and (attempt is None or e["attempt"] == attempt)]
+    starts = ev("start")
+    # 1. one restart, resumed from step FAIL_AFTER - 1's checkpoint
+    assert [e["attempt"] for e in starts] == [1, 2], starts
+    resume_step = (FAIL_AFTER // CKPT_EVERY) * CKPT_EVERY
+    assert starts[1]["resume"] == os.path.join(
+        result.path, f"checkpoint_{resume_step:08d}"), starts[1]
+    out["backend"] = starts[0]["backend"]
+    out["world"] = starts[0]["world"]
+    out["mesh"] = dict(zip(starts[0]["mesh_names"], starts[0]["mesh_shape"]))
+    out["visible_devices"] = starts[0]["visible"]
+    log(f"[12] (a) process group backend {out['backend']}, world "
+        f"{out['world']}, mesh {out['mesh']}, CUDA_VISIBLE_DEVICES "
+        f"{out['visible_devices']}")
+    if use_gpu:
+        assert out["backend"] == "nccl" and out["world"] == 1, out
+    steps1, steps2 = ev("step", 1), ev("step", 2)
+    assert [e["step"] for e in steps1] == list(range(1, FAIL_AFTER + 1))
+    assert [e["step"] for e in steps2] == list(range(resume_step + 1,
+                                                     TRAIN_STEPS + 1))
+    # 2. the resumed step's loss equals the first attempt's, bit for bit
+    again = {e["step"]: e["loss"] for e in steps2}
+    first = {e["step"]: e["loss"] for e in steps1}
+    out["resumed_equal"] = {n: again[n] == first[n] for n in again
+                            if n in first}
+    assert out["resumed_equal"] and all(out["resumed_equal"].values()), (
+        first, again)
+    (restore,) = ev("restore")
+    saved = {e["step"]: e for e in ev("checkpoint")}
+    out["restore_bit_equal"] = (restore["fingerprint"]
+                                == saved[resume_step]["fingerprint"])
+    assert out["restore_bit_equal"], (restore, saved[resume_step])
+    losses = [first[n] for n in sorted(first)] + [
+        again[n] for n in sorted(again) if n not in first]
+    out["losses"] = losses
+    # 3. the first loss against phase 8's mesh-less step in this process
+    out["first_loss_rel_err_vs_phase8"] = (
+        abs(losses[0] - phase8_losses[0]) / abs(phase8_losses[0]))
+    out["first_loss_bit_equal_phase8"] = losses[0] == phase8_losses[0]
+    out["losses_phase8"] = list(phase8_losses[:TRAIN_STEPS])
+    assert out["first_loss_rel_err_vs_phase8"] <= 1e-4, out
+    # ... and the first PHASE8_STEPS, after the sharded step's updates
+    out["rel_err_vs_phase8"] = [abs(a - b) / abs(b) for a, b in
+                                zip(losses, out["losses_phase8"])]
+    assert len(out["rel_err_vs_phase8"]) == TRAIN_STEPS and max(
+        out["rel_err_vs_phase8"][:PHASE8_STEPS]) <= UPDATED_RTOL, out
+    # 4. finite and falling
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    # 5. the result and the one checkpoint left
+    out["result_metrics"] = result.metrics
+    assert result.metrics["step"] == TRAIN_STEPS, result.metrics
+    kept = sorted(e for e in os.listdir(result.path)
+                  if e.startswith("checkpoint_"))
+    out["kept"] = kept
+    assert kept == [f"checkpoint_{TRAIN_STEPS:08d}"], kept
+    assert result.checkpoint.path == os.path.join(result.path, kept[0])
+    # 6. the kernels in the worker's process, as phase 8 counts them
+    L = cfg.n_layers
+    per_step = {"fwd": 2 * L if cfg.remat else L, "bwd": L, "dq": 0,
+                "dkv": 0}
+    out["launches"] = {k: steps1[-1]["launches"][k]
+                       + steps2[-1]["launches"][k] for k in per_step}
+    n_steps = len(steps1) + len(steps2)
+    want = {k: v * n_steps for k, v in per_step.items()}
+    if expect_launches:
+        assert out["launches"] == want, (out["launches"], want)
+    # timings: steps after each attempt's first, checkpoint I/O
+    timed = [e["ms"] for e in steps1[1:] + steps2[1:]]
+    out["step_ms"] = sorted(timed)[len(timed) // 2]
+    out["step_ms_all"] = [e["ms"] for e in steps1 + steps2]
+    out["tokens_per_s"] = batch * seq / (out["step_ms"] / 1e3)
+    out["checkpoints"] = [{k: e[k] for k in ("step", "seconds", "bytes")}
+                          for e in ev("checkpoint")]
+    out["restore"] = {k: restore[k] for k in ("step", "seconds", "bytes")}
+    (fail,) = ev("fail")
+    out["restart_s"] = starts[1]["t_start"] - fail["t"]
+    out["restart_to_first_step_s"] = steps2[0]["t"] - fail["t"]
+    log("[12] (a) " + _json.dumps({k: out[k] for k in (
+        "losses", "losses_phase8", "first_loss_rel_err_vs_phase8",
+        "rel_err_vs_phase8",
+        "first_loss_bit_equal_phase8", "resumed_equal", "restore_bit_equal",
+        "kept", "launches", "step_ms", "tokens_per_s", "checkpoints",
+        "restore", "restart_s", "restart_to_first_step_s", "fit_s")})
+        + f" | {smi}")
+    # (b) the sp_axis path
+    sp = ev("sp_step")
+    out["sp_losses"] = [e["loss"] for e in sp]
+    out["sp_rel_err"] = [abs(a - b) / abs(b)
+                         for a, b in zip(out["sp_losses"], losses)]
+    out["sp_bit_equal"] = [a == b for a, b in zip(out["sp_losses"], losses)]
+    # the ring path's backward: gradient norms of the weights as built
+    out["grad_norms"] = [e["grad_norm"] for e in steps1]
+    out["sp_grad_norms"] = [e["grad_norm"] for e in sp]
+    out["sp_grad_norm_rel_err"] = [
+        abs(a - b) / abs(b) for a, b in zip(out["sp_grad_norms"][:2],
+                                            out["grad_norms"][:2])]
+    out["sp_launches"] = sp[-1]["launches"]
+    out["sp_step_ms"] = [e["ms"] for e in sp]
+    assert len(sp) == SP_STEPS == 3, out
+    assert max(out["sp_rel_err"][:2] + out["sp_grad_norm_rel_err"]) \
+        <= SP_RTOL and out["sp_rel_err"][2] <= UPDATED_RTOL, out
+    want_sp = {k: v * SP_STEPS for k, v in per_step.items()}
+    if expect_launches:
+        assert out["sp_launches"] == want_sp, (out["sp_launches"], want_sp)
+    log("[12] (b) sp_axis='sp' (one chunk at sp=1): " + _json.dumps(
+        {k: out[k] for k in ("sp_losses", "sp_rel_err", "sp_bit_equal",
+                             "grad_norms", "sp_grad_norms",
+                             "sp_grad_norm_rel_err", "sp_launches",
+                             "sp_step_ms")}) + f" | {smi}")
+    log(f"[12] (c) left after shutdown: {out['left_after_shutdown']}")
+    return out
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -2845,7 +3270,16 @@ def main() -> int:
     report["graph_s"] = time.perf_counter() - t
     log(f"[11] phase time {report['graph_s']:.1f} s")
 
-    # 12. the kernels line and the result line
+    # 12. Train: a GPU worker trains 1b_bench on a mesh of one rank, with
+    # checkpoints and a failure restart, then the sp_axis path
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    report["train_lib"] = train_library_check(report["train"]["losses"],
+                                              smi=smi)
+    report["train_lib_s"] = time.perf_counter() - t
+    log(f"[12] phase time {report['train_lib_s']:.1f} s")
+
+    # 13. the kernels line and the result line
     k = report["kernels"]
     lines = []
     for name, kind_, src_kernel, replaces in (
@@ -2896,7 +3330,10 @@ def main() -> int:
         # phase 11: K1 in the two stage processes, each read around (b)
         # and (c) in its own process
         "8b_pipeline": {"fwd": sum(c["k1"] for c in report["graph"][
-            "pipeline"]["stages"]), "bwd": 0, "dq": 0, "dkv": 0}},
+            "pipeline"]["stages"]), "bwd": 0, "dq": 0, "dkv": 0},
+        # phase 12: the Train worker's (a) and (b), read in its process
+        "1b_bench_train_gang": report["train_lib"]["launches"],
+        "1b_bench_sp_axis": report["train_lib"]["sp_launches"]},
         "float32": {
         "debug_llama": report["debug_train"]["launches"],
         "debug_moe": report["family_debug"]["moe"]["launches"],

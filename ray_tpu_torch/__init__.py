@@ -43,11 +43,11 @@ _PG_SYMBOLS = {"placement_group", "remove_placement_group",
 _SUBMODULES = {
     "ops", "models", "serve", "bench", "common", "rpc", "gcs", "raylet",
     "object_store", "core_worker", "scheduling", "runtime_env", "util",
-    "api", "graph", "collective", "cluster_utils",
+    "api", "graph", "collective", "cluster_utils", "parallel", "train",
 }
 # the JAX package's modules a later slice brings (common/status.py::WAITING)
 _WAITING = {"client", "dashboard", "job", "autoscaler", "control_plane",
-            "data", "tune", "parallel", "train", "rl"}
+            "data", "tune", "rl"}
 
 
 def resolve_device(device=None):

@@ -13,7 +13,7 @@ Backends:
   the GCS). A CUDA tensor is staged to the host and comes back on its
   own device.
 - ``"xla"`` (or ``"nccl"``) — the in-program backend, NCCL on the GPU;
-  it refuses until ROADMAP item 12, and so does the KV backend's
+  it refuses until ROADMAP item 12b, and so does the KV backend's
   block-int8 quantized wire mode.
 """
 

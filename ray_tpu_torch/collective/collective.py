@@ -5,7 +5,7 @@ member, or ``create_collective_group`` on the driver to declare a group over
 actor handles (members then lazily join on their first collective call,
 reference ``collective.py:187-253``). The KV backend runs between host
 processes; the in-program backend (``"xla"``, NCCL on the GPU) refuses
-until ROADMAP item 12.
+until ROADMAP item 12b.
 """
 
 from __future__ import annotations

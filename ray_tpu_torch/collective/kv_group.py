@@ -20,7 +20,7 @@ Data-plane keys are garbage-collected every ``GC_EVERY`` ops behind a
 barrier, so long-running groups don't grow the KV unboundedly.
 ``wire_put_bytes`` / ``wire_get_bytes`` count the serialized blob sizes,
 so benches report measured bytes on the wire, not a formula. The JAX
-package's block-int8 quantized wire mode refuses until ROADMAP item 12.
+package's block-int8 quantized wire mode refuses until ROADMAP item 12b.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ import enum
 
 
 class Backend(str, enum.Enum):
-    XLA = "xla"    # in-program collectives; NCCL on the GPU (ROADMAP item 12)
+    XLA = "xla"    # in-program collectives; NCCL on the GPU (ROADMAP item 12b)
     KV = "kv"      # GCS-KV transport between host processes (gloo's role)
 
     @classmethod

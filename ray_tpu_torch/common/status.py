@@ -123,12 +123,12 @@ WAITING = {
     "cli": "queue A item 11, the CLI (python -m ray_tpu_torch start)",
     "data": "queue A item 11, Data",
     "tune": "queue A item 11, Tune",
-    "parallel": "queue A item 12, parallel (meshes and sharding)",
-    "collective": "queue A item 12, the NCCL backend of collectives (the "
+    "collective": "queue A item 12b, the NCCL backend of collectives (the "
                   "JAX package's in-program xla backend, xla_group.py)",
-    "collective_quantized": "queue A item 12, quantized collectives "
+    "collective_quantized": "queue A item 12b, quantized collectives "
                             "(block-int8 allreduce, quantization.py)",
-    "train": "queue A item 12, Train",
+    "train_pipeline": "queue A item 12b, Train's pipeline mode "
+                      "(pipeline_spec=, train/pipeline.py)",
     "rl": "queue A item 14, RL",
 }
 

@@ -13,10 +13,22 @@ the card). The MoE and ViT families (:mod:`~ray_tpu_torch.models.moe`,
 :mod:`~ray_tpu_torch.models.vit`) reuse its attention, head and init.
 Serving runs its own prefill and decode step
 (:mod:`ray_tpu_torch.models.paged_cache`, :mod:`ray_tpu_torch.models.decoding`).
+
+Sharded training: when the parameters are DTensors
+(:func:`ray_tpu_torch.parallel.sharding.shard_pytree`), ``forward`` and
+``loss_fn`` lay activations out by logical axes with ``rules``, as the JAX
+package's ``with_logical_constraint`` calls do, and DTensor inserts the
+collectives. What has no DTensor rule runs on local shards between
+``to_local`` and ``from_local``: the embedding gather (from a replicated
+table view), RoPE and attention (K1 and ``flash_bwd_kernel`` on the card),
+the f32 head and the loss's per-row terms. With ``sp_axis`` set and a
+``mesh`` given, attention is :func:`ray_tpu_torch.ops.ring_attention.ring_attention`
+over the sequence chunks of ``sp_axis``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -26,6 +38,10 @@ from ray_tpu_torch.models.remat import remat
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from ray_tpu_torch.parallel.sharding import (ShardingRules, get_active_mesh,
+                                             is_dtensor, kept_placements,
+                                             set_mesh,
+                                             with_logical_constraint)
 
 Params = Dict[str, Any]
 
@@ -49,8 +65,8 @@ class LlamaConfig:
     # the outputs of the weight products): models/remat.py
     remat_policy: str = "nothing"
     attn_block: int = 512           # tile of the plain flash backward
-    # Ring/sequence-parallel attention needs a process group (ROADMAP item
-    # 12); None here.
+    # Ring/sequence-parallel attention over this mesh axis; needs the
+    # mesh passed to forward/loss_fn.
     sp_axis: Optional[str] = None
 
     @property
@@ -97,8 +113,8 @@ CONFIGS: Dict[str, LlamaConfig] = {
 
 def param_logical_axes(config: LlamaConfig) -> Params:
     """The tree of :func:`init_params` with a tuple of logical axis names
-    for each leaf, as the JAX package names them (``llama.py:100``); the
-    sharding rules that read them belong to ROADMAP item 12."""
+    for each leaf, as the JAX package names them (``llama.py:100``), read
+    by :mod:`ray_tpu_torch.parallel.sharding`'s rules."""
     axes = {
         "embed": ("embed_vocab", "embed_fsdp"),
         "layers": {
@@ -258,7 +274,10 @@ def _head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return logits.reshape(*lead, -1)
 
 
-def _attention(x, layer, cos, sin, config: LlamaConfig):
+def _attention(x, layer, cos, sin, config: LlamaConfig,
+               rules: Optional[ShardingRules] = None, mesh=None):
+    if is_dtensor(x):
+        return _attention_sharded(x, layer, cos, sin, config, rules, mesh)
     q, k, v = _qkv(x, layer)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -266,69 +285,224 @@ def _attention(x, layer, cos, sin, config: LlamaConfig):
     return _attn_out(out, layer)
 
 
-def check_sp_axis(config: LlamaConfig) -> None:
-    if config.sp_axis is not None:
+def check_sp_axis(config: LlamaConfig, mesh=None) -> None:
+    """Ring attention over ``config.sp_axis`` needs the mesh whose axis
+    that is: without one, ``sp_axis`` refuses."""
+    if config.sp_axis is not None and mesh is None:
         raise NotImplementedError(
-            "sp_axis (ring attention) is not ported: it needs a process "
-            "group, ROADMAP item 12")
+            f"sp_axis={config.sp_axis!r} (ring attention) needs a mesh: "
+            f"pass mesh= with parameters placed by shard_pytree")
 
 
-def make_block(config: LlamaConfig, cos, sin):
+def make_block(config: LlamaConfig, cos, sin,
+               rules: Optional[ShardingRules] = None, mesh=None):
     """The transformer block ``block(x, layer) -> x`` (the JAX package's
     scanned block). With ``remat`` the layer runs under
     ``torch.utils.checkpoint`` with ``remat_policy``
     (:func:`ray_tpu_torch.models.remat.remat`): "nothing" keeps only its
     input and recomputes the layer, flash forward included; "dots" also
-    keeps the outputs of its weight products."""
+    keeps the outputs of its weight products. On DTensors the residual
+    stream is held at ("batch", "seq", "embed") under ``rules``."""
     c = config
-    check_sp_axis(c)
+    check_sp_axis(c, mesh)
+    rules = rules or ShardingRules()
 
     def block(x, layer):
         x = x + _attention(rmsnorm(x, layer["attn_norm"], c.norm_eps), layer,
-                           cos, sin, c)
-        return x + _mlp(rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer)
+                           cos, sin, c, rules, mesh)
+        x = _constrain(x, ("batch", "seq", "embed"), rules)
+        x = x + _mlp(rmsnorm(x, layer["mlp_norm"], c.norm_eps), layer)
+        return _constrain(x, ("batch", "seq", "embed"), rules)
 
     return remat(block, c.remat_policy) if c.remat else block
 
 
-def forward(params: Params, tokens: torch.Tensor,
-            config: LlamaConfig) -> torch.Tensor:
-    """tokens (B, S) integer → logits (B, S, vocab) float32."""
+# ------------------------------------------------------------ sharded path
+
+def _constrain(x, axes, rules: ShardingRules):
+    return with_logical_constraint(x, axes, rules) if is_dtensor(x) else x
+
+
+def _logical(mesh, rules: ShardingRules, axes) -> tuple:
+    return kept_placements(rules.mesh_axes(axes), mesh)
+
+
+def _local_in(x, out_placements):
+    """``x``'s local shard for a computation on local shards whose result
+    takes ``out_placements``: on a mesh dim where ``x`` is replicated but
+    the result is split, each rank's gradient is a partial sum."""
+    from torch.distributed.tensor import Partial
+
+    grad = [Partial() if p.is_replicate() and o.is_shard() else p
+            for p, o in zip(x.placements, out_placements)]
+    return x.to_local(grad_placements=grad)
+
+
+def _from_local(t, mesh, placements, shape):
+    from torch.distributed.tensor import DTensor
+
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(t, mesh, placements, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def _attention_sharded(x, layer, cos, sin, c: LlamaConfig,
+                       rules: ShardingRules, mesh):
+    """Attention on DTensor activations: q/k/v laid out as ("batch", seq,
+    heads, head_dim), seq split over ``sp_axis`` for ring attention and
+    whole otherwise; RoPE (at each chunk's positions) and the attention
+    itself run on the local shards."""
+    dmesh = x.device_mesh
+    q, k, v = _qkv(x, layer)
+    seq = c.sp_axis
+    q_pl = kept_placements((rules.batch, seq, rules.heads, None), dmesh)
+    kv_pl = kept_placements((rules.batch, seq, rules.kv_heads, None), dmesh)
+    ql = q.redistribute(dmesh, q_pl).to_local()
+    kl = k.redistribute(dmesh, kv_pl).to_local()
+    vl = v.redistribute(dmesh, kv_pl).to_local()
+    s_local = ql.shape[1]
+    off = 0
+    if seq is not None and seq in dmesh.mesh_dim_names:
+        off = dmesh.get_local_rank(seq) * s_local
+    cs, sn = cos[off:off + s_local], sin[off:off + s_local]
+    ql, kl = apply_rope(ql, cs, sn), apply_rope(kl, cs, sn)
+    if seq is not None:
+        from ray_tpu_torch.ops.ring_attention import ring_attention
+
+        out = ring_attention(ql, kl, vl, mesh, causal=True, sp_axis=seq,
+                             heads_axis=rules.heads, batch_axes=rules.batch,
+                             block=c.attn_block)
+    else:
+        out = flash_attention(ql, kl, vl, causal=True, block=c.attn_block)
+    # the attention's (B, S, H, D) view of its (B, H, S, D) result: DTensor
+    # reshapes its local shard as a view, so the shard must be contiguous
+    out = _from_local(out.contiguous(), dmesh, q_pl, q.shape)
+    return _attn_out(out, layer)
+
+
+def _embed(params: Params, tokens, c: LlamaConfig, rules: ShardingRules):
+    """The embedding gather. On a DTensor table: from a replicated view of
+    the table (the JAX package's ``("embed_vocab", "embed")``
+    constraint), on local tokens."""
+    table = params["embed"]
+    if not is_dtensor(table):
+        return table.to(c.dtype)[tokens]
+    dmesh = table.device_mesh
+    table = table.redistribute(dmesh, _logical(dmesh, rules,
+                                               ("embed_vocab", "embed")))
+    x_pl = _logical(dmesh, rules, ("batch", "seq", "embed"))
+    tok = with_logical_constraint(tokens, ("batch", "seq"),
+                                  rules).to_local()
+    x = _local_in(table, x_pl).to(c.dtype)[tok]
+    return _from_local(x, dmesh, x_pl,
+                       (*tokens.shape, table.shape[-1]))
+
+
+def _head(x, head, rules: ShardingRules):
+    """f32 logits (B, S, vocab). On DTensors: at ("batch", "seq",
+    "vocab"), from the head gathered over its embed dim, on local
+    shards."""
+    if not is_dtensor(x):
+        return _head_logits(x, head)
+    dmesh = x.device_mesh
+    out_pl = _logical(dmesh, rules, ("batch", "seq", "vocab"))
+    head = head.redistribute(dmesh, _logical(dmesh, rules,
+                                             ("embed", "vocab")))
+    x = with_logical_constraint(x, ("batch", "seq", "embed"), rules)
+    logits = _head_logits(_local_in(x, out_pl), _local_in(head, out_pl))
+    return _from_local(logits, dmesh, out_pl,
+                       (*x.shape[:-1], head.shape[-1]))
+
+
+def _mesh_context(params: Params):
+    """On DTensor parameters, their mesh made active unless one already
+    is."""
+    if not is_dtensor(params["embed"]) or get_active_mesh() is not None:
+        return contextlib.nullcontext()
+    return set_mesh(params["embed"].device_mesh)
+
+
+def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
+            rules: Optional[ShardingRules] = None, *,
+            mesh=None) -> torch.Tensor:
+    """tokens (B, S) integer → logits (B, S, vocab) float32.
+
+    On DTensor parameters the logits are a DTensor at ("batch", "seq",
+    "vocab") under ``rules``; ``mesh`` is needed for the sequence-parallel
+    (ring attention) path only."""
     c = config
-    tokens = tokens.long()
-    x = params["embed"].to(c.dtype)[tokens]
-    cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
-                                device=x.device)
-    block = make_block(c, cos, sin)
-    # One unbind per stacked weight, as scan slices its xs: its backward
-    # stacks the layers' gradients once, where indexing each layer would
-    # scatter every layer's gradient into a zeroed full-size copy and sum
-    # n_layers of them.
-    names = list(params["layers"])
-    for ws in zip(*(params["layers"][n].unbind(0) for n in names)):
-        x = block(x, dict(zip(names, ws)))
-    x = rmsnorm(x, params["final_norm"], c.norm_eps)
-    head = params["embed"].T if c.tie_embeddings else params["lm_head"]
-    return _head_logits(x, head)
+    rules = rules or ShardingRules()
+    with _mesh_context(params):
+        x = _embed(params, tokens.long(), c, rules)
+        cos, sin = rope_frequencies(
+            c.head_dim, c.max_seq, c.rope_theta,
+            device=(x.to_local() if is_dtensor(x) else x).device)
+        block = make_block(c, cos, sin, rules, mesh)
+        # One unbind per stacked weight, as scan slices its xs: its
+        # backward stacks the layers' gradients once, where indexing each
+        # layer would scatter every layer's gradient into a zeroed
+        # full-size copy and sum n_layers of them.
+        names = list(params["layers"])
+        for ws in zip(*(params["layers"][n].unbind(0) for n in names)):
+            x = block(x, dict(zip(names, ws)))
+        x = rmsnorm(x, params["final_norm"], c.norm_eps)
+        head = params["embed"].T if c.tie_embeddings else params["lm_head"]
+        return _head(x, head, rules)
+
+
+def _token_terms(logits, tokens, mask):
+    """Per-row sums of the loss: (nll · mask, correct · mask, mask) over
+    the next-token predictions of (B, S) rows."""
+    logits = logits[:, :-1]
+    targets = tokens[:, 1:]
+    mask = (torch.ones_like(targets, dtype=torch.float32) if mask is None
+            else mask[:, :-1].float())
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    return ((nll * mask).sum(), ((logits.argmax(-1) == targets) * mask).sum(),
+            mask.sum())
+
+
+def _summed_terms(logits, tokens, mask, rules: ShardingRules):
+    """:func:`_token_terms` of the whole batch. On DTensor logits each
+    rank takes the terms of its rows (whole sequences, whole vocab) and
+    the sums are reduced over the batch's mesh axes into plain tensors,
+    the same on every rank."""
+    if not is_dtensor(logits):
+        return _token_terms(logits, tokens, mask)
+    from torch.distributed.tensor import Partial, Replicate
+
+    dmesh = logits.device_mesh
+    rows = _logical(dmesh, rules, ("batch", None, None))
+    local = lambda t, axes: with_logical_constraint(  # noqa: E731
+        t, ("batch", "seq"), rules).redistribute(
+        dmesh, _logical(dmesh, rules, axes)).to_local()
+    if mask is not None:
+        mask = local(mask, ("batch", None))
+    terms = _token_terms(logits.redistribute(dmesh, rows).to_local(),
+                         local(tokens, ("batch", None)), mask)
+    summed = [Partial() if p.is_shard() else Replicate() for p in rows]
+    return (_from_local(t.reshape(1), dmesh, summed, (1,)).full_tensor()[0]
+            for t in terms)
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
-            config: LlamaConfig):
+            config: LlamaConfig, rules: Optional[ShardingRules] = None, *,
+            mesh=None):
     """Next-token cross entropy.
 
     ``batch``: {"tokens": (B, S) integer, optional "mask": (B, S) 0/1 —
     mask[i] gates the loss at step i, predicting token i+1; the last
     position's mask is unused}. Returns (loss, {"loss", "accuracy",
-    "tokens"})."""
-    tokens = batch["tokens"].long()
-    logits = forward(params, tokens, config)[:, :-1]
-    targets = tokens[:, 1:]
-    mask = batch.get("mask")
-    mask = (torch.ones_like(targets, dtype=torch.float32) if mask is None
-            else mask[:, :-1].float())
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, targets[..., None])[..., 0]
-    denom = mask.sum().clamp(min=1.0)
-    loss = (nll * mask).sum() / denom
-    acc = ((logits.argmax(-1) == targets) * mask).sum() / denom
-    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+    "tokens"}), plain tensors also on DTensor parameters."""
+    rules = rules or ShardingRules()
+    with _mesh_context(params):
+        tokens = with_logical_constraint(batch["tokens"].long(),
+                                         ("batch", "seq"), rules)
+        nll, correct, denom = _summed_terms(
+            forward(params, tokens, config, rules, mesh=mesh), tokens,
+            batch.get("mask"), rules)
+    denom = denom.clamp(min=1.0)
+    loss = nll / denom
+    return loss, {"loss": loss, "accuracy": correct / denom,
+                  "tokens": denom}

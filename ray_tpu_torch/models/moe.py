@@ -14,7 +14,7 @@ Dispatch ``tec,th->ech`` and combine ``tec,ech->th`` are matrix products
 over the flattened (token, expert·slot) axes, and the expert FFN
 ``ech,ehm->ecm`` a ``torch.bmm`` over the stacked (E, H, M) weights, as the
 JAX package computes them outside any Pallas kernel. Expert parallelism
-(the ``expert`` axis sharded over a mesh) belongs to ROADMAP item 12.
+(the ``expert`` axis sharded over a mesh) belongs to ROADMAP item 12b.
 """
 
 from __future__ import annotations
@@ -203,6 +203,8 @@ def forward(params: Params, tokens: torch.Tensor, config: MoEConfig):
     """tokens (B, S) integer → (logits (B, S, V) f32, the router metrics
     averaged over the layers)."""
     c = config.base
+    # no mesh here: sp_axis refuses until the MoE's sharded path (the
+    # expert axis, ROADMAP item 12b) comes
     llama.check_sp_axis(c)
     tokens = tokens.long()
     x = params["embed"].to(c.dtype)[tokens]

@@ -1,5 +1,4 @@
-"""Training step construction (port of ``ray_tpu/models/training.py``) on
-one device.
+"""Training step construction (port of ``ray_tpu/models/training.py``).
 
 The optimizer is an own copy of the JAX package's optax chain
 ``chain(clip_by_global_norm(grad_clip), adamw(warmup_cosine_decay_schedule))``
@@ -13,22 +12,47 @@ The optimizer is an own copy of the JAX package's optax chain
 
 The step updates parameters and moments in place — the counterpart of the
 JAX step's ``donate_argnums`` — so a step holds one extra copy of the
-gradients and nothing else. The mesh, sharding rules, ``state_shardings``
-and ``_overlay_param_shaped`` belong to the parallel slice (ROADMAP item
-12) and are not ported.
+gradients and nothing else.
+
+With a mesh (:mod:`ray_tpu_torch.parallel`) the parameters are DTensors
+placed by logical axes, the moments take their parameter's placements
+(:func:`state_shardings`, :func:`_overlay_param_shaped`: ZeRO-style, with
+fsdp rules Adam's moments are sharded exactly like the weights), the step
+counts are plain ints on every rank (replicated), and the batch is laid
+out as ("batch", "seq"). The update is elementwise on each rank's local
+shards; only the global gradient norm reduces across ranks. Without a
+mesh the functions run on one device as before.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.parallel.sharding import (ShardingRules, is_dtensor,
+                                             logical_sharding, map_axes,
+                                             place_leaf, set_mesh,
+                                             with_logical_constraint)
 
 Pytree = Any
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the storage itself under ``no_grad``);
+    a plain tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _sq_norm(g: torch.Tensor) -> torch.Tensor:
+    """sum(g²) in f32; for a DTensor over the whole tensor, the same on
+    every rank."""
+    s = g.float().square().sum()
+    return s.full_tensor() if is_dtensor(s) else s
 
 
 def tree_leaves(tree: Pytree) -> List[torch.Tensor]:
@@ -119,9 +143,11 @@ class AdamW:
         are in ``tree_leaves(params)`` order. Returns the global gradient
         norm (before clipping), accumulated in f32."""
         c = self.config
-        leaves = tree_leaves(params)
-        mus, nus = tree_leaves(state.mu), tree_leaves(state.nu)
-        g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        leaves = [_local(p) for p in tree_leaves(params)]
+        mus = [_local(m) for m in tree_leaves(state.mu)]
+        nus = [_local(n) for n in tree_leaves(state.nu)]
+        g_norm = torch.sqrt(sum(_sq_norm(g) for g in grads))
+        grads = [_local(g) for g in grads]
         # clip_by_global_norm: unchanged when the norm is below the limit,
         # else scaled by max_norm / g_norm (in the gradient's dtype)
         clip = g_norm >= c.grad_clip
@@ -149,9 +175,87 @@ class TrainState:
     opt_state: AdamWState
 
 
+def state_shardings(state_shape: TrainState, param_axes: Pytree, mesh,
+                    rules: ShardingRules) -> TrainState:
+    """The tree of DTensor placements for a TrainState, derived from the
+    parameters' logical axes.
+
+    Optimizer-state leaves whose tree and shapes match the parameters take
+    the parameters' placements (Adam's mu and nu); the counts replicate."""
+    param_shard = map_axes(lambda axes: logical_sharding(axes, mesh, rules),
+                           param_axes)
+    replicated = logical_sharding((), mesh, rules)
+    opt_shard = _map_leaves(lambda leaf: replicated, state_shape.opt_state)
+    # Overlay param-shaped subtrees (Adam mu/nu) with the param placements.
+    opt_shard = _overlay_param_shaped(
+        state_shape.opt_state, opt_shard, state_shape.params, param_shard)
+    return TrainState(step=replicated, params=param_shard,
+                      opt_state=opt_shard)
+
+
+def _map_leaves(fn: Callable, tree: Pytree) -> Pytree:
+    """``fn`` over the leaves of dicts, lists, tuples and dataclasses."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{f.name: _map_leaves(fn, getattr(tree, f.name))
+                             for f in dataclasses.fields(tree)})
+    if isinstance(tree, (dict, list, tuple)):
+        return tree_map(lambda leaf: _map_leaves(fn, leaf), tree)
+    return fn(tree)
+
+
+def _structure(tree: Pytree):
+    """A comparable description of a tree's nesting (dict keys, sequence
+    lengths, dataclass types), leaves left out."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _structure(tree[k])) for k in sorted(tree)))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, tuple(_structure(v) for v in tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return (type(tree).__name__, tuple(
+            (f.name, _structure(getattr(tree, f.name)))
+            for f in dataclasses.fields(tree)))
+    return "*"
+
+
+def _shapes(tree: Pytree) -> list:
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [s for f in dataclasses.fields(tree)
+                for s in _shapes(getattr(tree, f.name))]
+    return [tuple(getattr(leaf, "shape", ())) if isinstance(
+        leaf, torch.Tensor) else None for leaf in tree_leaves(tree)]
+
+
+def _overlay_param_shaped(opt_shape, opt_shard, params_shape, param_shard):
+    """Replace the subtrees of ``opt_shard`` whose structure and shapes
+    match the parameter tree with the parameter placements (Adam's mu,
+    nu, …)."""
+    params_def = _structure(params_shape)
+    params_shapes = _shapes(params_shape)
+
+    def rec(shape_node, shard_node):
+        if (_structure(shape_node) == params_def
+                and _shapes(shape_node) == params_shapes):
+            return param_shard
+        if isinstance(shape_node, (list, tuple)):
+            out = [rec(s, h) for s, h in zip(shape_node, shard_node)]
+            return type(shape_node)(out) if not hasattr(
+                shape_node, "_fields") else type(shape_node)(*out)
+        if isinstance(shape_node, dict):
+            return {k: rec(shape_node[k], shard_node[k]) for k in shape_node}
+        if dataclasses.is_dataclass(shape_node):
+            return type(shape_node)(**{
+                f.name: rec(getattr(shape_node, f.name),
+                            getattr(shard_node, f.name))
+                for f in dataclasses.fields(shape_node)})
+        return shard_node
+
+    return rec(opt_shape, opt_shard)
+
+
 def make_train_step(loss_fn: Callable[[Pytree, Dict[str, torch.Tensor]],
                                       Tuple[torch.Tensor, Dict]],
-                    optimizer: AdamW) -> Callable:
+                    optimizer: AdamW, mesh=None,
+                    rules: Optional[ShardingRules] = None) -> Callable:
     """Build the train step ``step(state, batch) -> (state, metrics)``.
 
     ``loss_fn(params, batch) -> (loss, metrics)``. Gradients come from one
@@ -159,17 +263,30 @@ def make_train_step(loss_fn: Callable[[Pytree, Dict[str, torch.Tensor]],
     place (the JAX step donates its state instead), and the same state
     object is returned with ``step`` advanced. ``metrics`` adds
     ``grad_norm`` (before clipping) and ``lr_step`` (the step the update
-    was taken at), as the JAX step does."""
+    was taken at), as the JAX step does.
+
+    The batch's 2-D tensors are laid out as ("batch", "seq") — data
+    parallel over dp+fsdp, sequence over sp — which does nothing when no
+    mesh is active. With ``mesh``, the step runs under it (the batch may
+    be the whole batch, the same on every rank, or DTensors), and each
+    gradient of a DTensor parameter is brought to its parameter's
+    placements before the update."""
+    rules = rules or ShardingRules()
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        leaves = tree_leaves(state.params)
-        loss, metrics = loss_fn(state.params, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
-                   for k, v in metrics.items()}
-        metrics["grad_norm"] = optimizer.update_(list(grads),
-                                                 state.opt_state,
-                                                 state.params)
+        with set_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            batch = {k: with_logical_constraint(v, ("batch", "seq"), rules)
+                     if v.dim() == 2 else v for k, v in batch.items()}
+            leaves = tree_leaves(state.params)
+            loss, metrics = loss_fn(state.params, batch)
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     if is_dtensor(p) else g
+                     for p, g in zip(leaves, torch.autograd.grad(loss,
+                                                                 leaves))]
+            metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                       for k, v in metrics.items()}
+            metrics["grad_norm"] = optimizer.update_(grads, state.opt_state,
+                                                     state.params)
         metrics["lr_step"] = state.step
         state.step += 1
         return state, metrics
@@ -179,12 +296,44 @@ def make_train_step(loss_fn: Callable[[Pytree, Dict[str, torch.Tensor]],
 
 def init_train_state(init_params_fn: Callable[[torch.Generator], Pytree],
                      optimizer: AdamW, generator: torch.Generator,
-                     device=None) -> TrainState:
+                     device=None, *, param_axes: Optional[Pytree] = None,
+                     mesh=None, rules: Optional[ShardingRules] = None):
     """Parameters from ``init_params_fn(generator)``, placed on ``device``
     (CUDA unless the caller asks otherwise) and marked as leaves that take
-    gradients, with zero moments beside them."""
-    dev = resolve_device(device)
-    params = tree_map(lambda t: t.to(dev).requires_grad_(True),
-                      init_params_fn(generator))
-    return TrainState(step=0, params=params,
-                      opt_state=optimizer.init(params))
+    gradients, with zero moments beside them.
+
+    With ``mesh`` (and ``param_axes``, the model's logical axes), the
+    state is sharded: each leaf of ``init_params_fn``'s tree is placed by
+    ``rules`` in turn — a DTensor (``shard_pytree``'s) as it is, so nothing
+    whole is made here; a whole tensor is distributed and its entry in the
+    tree replaced by this rank's shard, which frees the whole leaf unless
+    the caller holds it — and the moments are made as zeros of each
+    parameter's local shard. Returns ``(state, shardings)``, the placements
+    tree of :func:`state_shardings`, as the JAX function does; without a
+    mesh, the state alone."""
+    if mesh is None:
+        dev = resolve_device(device)
+        params = tree_map(lambda t: t.to(dev).requires_grad_(True),
+                          init_params_fn(generator))
+        return TrainState(step=0, params=params,
+                          opt_state=optimizer.init(params))
+    if param_axes is None:
+        raise ValueError("init_train_state on a mesh needs param_axes")
+    rules = rules or ShardingRules()
+    params = init_params_fn(generator)
+    _place_(params, param_axes, mesh, rules)
+    state = TrainState(step=0, params=params,
+                       opt_state=optimizer.init(params))
+    shardings = state_shardings(state, param_axes, mesh, rules)
+    return state, shardings
+
+
+def _place_(tree: dict, axes: dict, mesh, rules: ShardingRules) -> None:
+    """Replace each leaf of ``tree`` (dicts, in place) by its DTensor on
+    ``mesh``, one leaf at a time, taking gradients."""
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            _place_(tree[k], axes[k], mesh, rules)
+        else:
+            tree[k] = place_leaf(axes[k], tree[k], mesh,
+                                 rules).requires_grad_(True)

@@ -56,6 +56,7 @@ import torch
 
 from ray_tpu.models import llama as jllama
 
+from _torch_dist import MemoryKV
 from _torch_isolation import _module_isolation_guard  # noqa: F401
 
 PACKAGES = ["ray_tpu", "ray_tpu_torch"]
@@ -660,34 +661,7 @@ def test_exec_loop_prefetch_follows_pipeline_overlap(monkeypatch, overlap):
 
 # ------------------------------------------------ the KV collective group
 
-class _KV:
-    """The GCS internal KV's four calls, in memory, shared by threads."""
-
-    def __init__(self):
-        import threading
-
-        self._d, self._lock = {}, threading.Lock()
-
-    @staticmethod
-    def _k(ns, key):
-        return ns, key.encode() if isinstance(key, str) else key
-
-    def kv_put(self, ns, key, value, overwrite=True):
-        with self._lock:
-            self._d[self._k(ns, key)] = value
-        return True
-
-    def kv_get(self, ns, key):
-        with self._lock:
-            return self._d.get(self._k(ns, key))
-
-    def kv_del(self, ns, key):
-        with self._lock:
-            return self._d.pop(self._k(ns, key), None) is not None
-
-    def kv_keys(self, ns, prefix=b""):
-        with self._lock:
-            return [k for n, k in self._d if n == ns and k.startswith(prefix)]
+_KV = MemoryKV
 
 
 def _collective_program(pkg, rank, world, make):

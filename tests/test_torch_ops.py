@@ -132,6 +132,8 @@ def _port_files():
         if n.endswith(".py") and n.startswith(("torch_", "flash_"))]
     for root, _, names in os.walk(os.path.join(REPO, "ray_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    # the gloo ranks' side of the distributed tests runs the port alone
+    files.append(os.path.join(REPO, "tests", "_torch_dist.py"))
     return files
 
 
@@ -221,6 +223,8 @@ def test_new_modules_import_without_jax_or_ray_tpu():
             "import ray_tpu_torch.graph, ray_tpu_torch.collective\n"
             "import ray_tpu_torch.cluster_utils, ray_tpu_torch.util\n"
             "import ray_tpu_torch.models.pipeline\n"
+            "import ray_tpu_torch.parallel, ray_tpu_torch.train\n"
+            "import ray_tpu_torch.ops.ring_attention\n"
             "from ray_tpu_torch.util import ActorPool, Queue, state, "
             "profiling\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

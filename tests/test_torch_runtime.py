@@ -367,6 +367,22 @@ def _quantized_group():
     KVGroup(None, 2, 0, "g", quantized=True)
 
 
+def _train_pipeline():
+    from ray_tpu_torch.train import JaxTrainer
+
+    JaxTrainer(pipeline_spec=object())
+
+
+def _parallel_imports():
+    assert ray_tpu_torch.parallel.make_mesh is not None
+    assert ray_tpu_torch.parallel.shard_pytree is not None
+
+
+def _train_imports():
+    assert ray_tpu_torch.train.JaxTrainer is not None
+    assert ray_tpu_torch.train.TorchTrainer is not None
+
+
 def _cluster_control_plane():
     from ray_tpu_torch.cluster_utils import Cluster
 
@@ -386,18 +402,19 @@ _WAITING_CASES = {
         system_config={"autoscaling_enabled": True}), "the autoscaler"),
     "graph": (_graph_builds, None),
     "cluster_utils": (_cluster_runs, None),
-    "collective": (_nccl_group, "item 12, the NCCL backend"),
+    "collective": (_nccl_group, "item 12b, the NCCL backend"),
     "collective_quantized": (_quantized_group,
-                             "item 12, quantized collectives"),
+                             "item 12b, quantized collectives"),
+    "train_pipeline": (_train_pipeline, "item 12b, Train's pipeline mode"),
+    "parallel": (_parallel_imports, None),
+    "train": (_train_imports, None),
     "cluster_control_plane": (_cluster_control_plane, "control-plane"),
     "gcs_failover": (_failover_client, "GCS failover"),
     "cli": (_refused_cli, "item 11, the CLI"),
     **{name: (lambda name=name: getattr(ray_tpu_torch, name), item)
        for name, item in (
            ("job", "item 11, jobs"), ("data", "item 11, Data"),
-           ("tune", "item 11, Tune"),
-           ("parallel", "item 12, parallel"),
-           ("train", "item 12, Train"), ("rl", "item 14, RL"))},
+           ("tune", "item 11, Tune"), ("rl", "item 14, RL"))},
 }
 
 
