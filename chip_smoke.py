@@ -4,7 +4,9 @@ the port builds, agrees with itself on the CPU, serves Llama-3-8B (also
 speculatively, with a 1B draft, from a GPU actor, through Serve's HTTP
 proxy, and as a two-stage pipeline of GPU actors over device channels)
 and trains the 1B Llama (also from a Train worker on a mesh, with
-checkpoints and a failure restart), a Mixtral-shaped MoE and ViT-B/16.
+checkpoints and a failure restart, and as two GPU pipeline stages), a
+Mixtral-shaped MoE (also on a mesh) and ViT-B/16, runs the NCCL
+collective group and trains PPO with a GPU learner.
 
     python3 chip_smoke.py
 
@@ -168,12 +170,53 @@ Phases (any failure exits non-zero, and no result line is printed):
      causal chunk skip are verified on the CPU only
      (tests/test_torch_parallel.py); (c) after shutdown() no process of
      the session is left;
-  13. the kernels line, then the result line.
+  13. collectives and pipeline training: (a) XlaGroup of world 1 on the
+     card (NCCL through torch.cuda.nccl): allreduce (SUM, MAX, MIN),
+     broadcast, allgather and reducescatter of a (1, 2^24) f32 tensor and
+     its bf16 rounding each equal the input bit for bit, the profiler's
+     device activity of one allreduce reported (at world 1 NCCL may copy
+     instead of launching a kernel); then with quantized_collectives on,
+     allreduce and reducescatter within allreduce_error_bound, apart from
+     the input somewhere, and against the port's CPU group (bit equality
+     reported); (b) under a fresh init(), PipelineRunner trains the 1b
+     Llama (untied head) at full width and depth as two num_gpus=0.5
+     stages of 8 layers (the embedding in the first, the final norm, head
+     and cross entropy in the last), 4 seeded (1, 2048) microbatches, sgd,
+     3 steps, over shm channels sized to one activation, held to a
+     single-process step of the same stage functions on the same
+     microbatches (the first loss within 1e-4, bit equality reported, the
+     later within 5e-3); K1 and flash_bwd_kernel counted in each stage's
+     process as the 1F1B schedule implies, K2a, K2b and the plain
+     attention never; step ms, microbatches/s, each stage's host step
+     (ravel, optimizer, unravel) and device ms; GPU 1 after the runner's
+     shutdown, no process of the session after shutdown();
+  14. the MoE's expert axis: phase 8c's 8x7b weights and batch on a mesh
+     of one rank in this process (MeshConfig() on "cuda", an NCCL group
+     of world 1) under FSDP_RULES: (a) 4 steps, the first loss within
+     1e-4 of 8c's (bit equality reported), the first four within 5e-3,
+     the router's aux loss as 8c holds it, K1 twice and flash_bwd_kernel
+     once per layer per step; (b) 3 steps with sp_axis="sp": the first two
+     losses within 1e-3 of (a)'s, the third within 5e-3, the same
+     launches (at sp = 1 the rotation is checked on the CPU only); step
+     ms beside 8c's;
+  15. RL: (a) PPOLearner on the card against the same learner on the CPU,
+     PPOConfig's default width (64, 64), one batch of two local CartPole
+     EnvRunners (2 x 256 steps), one update of 4 epochs of 128: metrics
+     and weights within 1e-5; (b) under a fresh init(), PPO with
+     tests/test_rl.py's learning settings, two CPU env runners and the
+     learner on the card, 12 iterations: final return > max(2 x early,
+     60); env steps/s and the learner's update ms; (c) a LearnerGroup of
+     one num_gpus=1 learner actor sees its lease, its weights after one
+     update equal (a)'s card learner's (bit equality reported); GPU 1
+     after the group stops, no process of the session after shutdown();
+  16. the kernels line, then the result line.
 
 Needs one CUDA card, nvcc, about 70 GB of device memory, about 9 GB of
-/dev/shm (phase 11's object store and channels) and about 13 GB of disk
-under $TMPDIR (phase 12's checkpoints: two of about 6.2 GB at once); no
-network.
+/dev/shm (phase 11's object store and channels; phase 13's channels take
+about 60 MB), about 13 GB of disk under $TMPDIR (phase 12's checkpoints:
+two of about 6.2 GB at once) and about 40 GB of host memory (phase 13's
+host steps: each stage's flat f32 parameters and gradients, about 3 GB
+each, and their copies); no network.
 """
 
 import json
@@ -3023,6 +3066,739 @@ def _train_checks(root, phase8_losses, model, batch, seq, device_type,
 
 # ------------------------------------------------------------- main
 
+# ------------------------------------------------------------- phase 13
+# (a) the in-program collective group (XlaGroup: NCCL across the devices
+# this process owns) at world 1; (b) Train's pipeline mode on the 1b
+# Llama as two GPU stages.
+
+NCCL_ELEMS = 1 << 24     # (1, 2^24): 64 MiB in f32, 32 MiB in bf16
+# the JAX package's slack on its quantized bound (float32 dequantisation
+# rounding; tests/test_quantized_collective.py:203)
+QUANT_SLACK = 1e-5
+PIPE_TRAIN_MODEL = "1b"  # untied head: the embedding and the head can
+                         # live in different stages (1b_bench ties them)
+PIPE_TRAIN_STAGES = 2
+PIPE_TRAIN_M = 4         # microbatches a step
+PIPE_TRAIN_SEQ = 2048
+PIPE_TRAIN_STEPS = 3
+PIPE_TRAIN_LR = 0.5      # sgd: bf16 weights keep a step of this size
+# the first loss is the same forward on the same bits in both runs; the
+# later ones read updates made from bf16 gradients whose dQ adds in no
+# fixed order (PERF.md §6: up to 8.8e-4 at the first update)
+PIPE_FIRST_RTOL = 1e-4
+PIPE_LATER_RTOL = 5e-3
+
+
+def _timed(fn, device):
+    """``fn()`` once to warm, then once timed: (result, ms), the time
+    ended by a synchronize."""
+    import torch
+
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def _device_kernels(fn):
+    """The device activity ``torch.profiler`` records over one ``fn()``:
+    {name: calls}, kernels and copies alike."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0 and e.key not in out:
+            out[e.key] = e.count
+    return out
+
+
+def nccl_group_check(device, n=NCCL_ELEMS, seed=13):
+    """Phase 13 (a): ``XlaGroup`` of world 1 on ``device`` (NCCL through
+    ``torch.cuda.nccl`` on the card). allreduce (SUM, MAX, MIN),
+    broadcast, allgather and reducescatter of a (1, n) f32 tensor and its
+    bf16 rounding each give the input bit for bit, as world 1 implies; the
+    device activity of one NCCL allreduce as the profiler names it. Then
+    with ``quantized_collectives`` on, allreduce and reducescatter of the
+    f32 tensor: within ``allreduce_error_bound`` (+ QUANT_SLACK), apart
+    from the input somewhere (the quantized path ran), and bit-equal to
+    the port's own CPU group on the same input (reported)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.collective import quantization as q
+    from ray_tpu_torch.collective.types import ReduceOp
+    from ray_tpu_torch.collective.xla_group import XlaGroup
+    from ray_tpu_torch.common.config import GLOBAL_CONFIG
+
+    g = XlaGroup(1) if device.type == "cuda" else XlaGroup(
+        1, devices=[device])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x32 = torch.randn((1, n), generator=gen, device=device) * 2
+    out = {"devices": [str(d) for d in g.devices], "elements": n,
+           "exact": {}}
+    for name, x in (("float32", x32), ("bfloat16", x32.bfloat16())):
+        res = {}
+        ops = {f"allreduce_{op}": (lambda op=op: g.allreduce(
+            x, ReduceOp[op]), x[0]) for op in ("SUM", "MAX", "MIN")}
+        ops["broadcast"] = (lambda: g.broadcast(x, 0), x[0])
+        ops["allgather"] = (lambda: g.allgather(x)[0], x[0])
+        ops["reducescatter"] = (lambda: g.reducescatter(x), x)
+        for op, (fn, want) in ops.items():
+            got, ms = _timed(fn, device)
+            res[op] = {"bit_equal": bool(torch.equal(got, want)),
+                       "device": str(got.device), "ms": ms}
+        out["exact"][name] = res
+        log(f"[13] (a) XlaGroup world 1, {name}: " + json.dumps(res))
+        bad = {op: r for op, r in res.items() if not r["bit_equal"]}
+        assert not bad, bad
+    if device.type == "cuda":
+        acts = _device_kernels(lambda: g.allreduce(x32))
+        out["allreduce_device_activity"] = acts
+        out["nccl_kernels"] = [k for k in acts if "nccl" in k.lower()]
+        out["nccl_launched_a_kernel"] = bool(out["nccl_kernels"])
+        log("[13] (a) one f32 allreduce on the card, its device activity "
+            "(a world-1 NCCL call may copy instead of launching a kernel): "
+            + json.dumps(acts))
+    block = GLOBAL_CONFIG.get("quantized_collectives_block")
+    host = x32[0].cpu().numpy()
+    bound = torch.from_numpy(q.allreduce_error_bound([host], block))
+    cpu_group = XlaGroup(1, devices=[torch.device("cpu")])
+    GLOBAL_CONFIG.set_system_config_value("quantized_collectives", True)
+    try:
+        quant = {}
+        for op, fn, cpu_fn, want in (
+                ("allreduce", lambda: g.allreduce(x32),
+                 lambda: cpu_group.allreduce(x32.cpu()), x32[0]),
+                ("reducescatter", lambda: g.reducescatter(x32),
+                 lambda: cpu_group.reducescatter(x32.cpu()), x32)):
+            got, ms = _timed(fn, device)
+            err = (got.double() - want.double()).abs().cpu().reshape(-1)
+            quant[op] = {
+                "ms": ms, "max_abs_err": err.max().item(),
+                "max_bound": bound.max().item(),
+                "within_bound": bool((err <= bound.double() + QUANT_SLACK)
+                                     .all()),
+                "differs_from_input": bool(err.max() > 0),
+                "bit_equal_cpu_group": bool(torch.equal(got.cpu(),
+                                                        cpu_fn()))}
+        out["quantized"] = quant
+        log("[13] (a) quantized (block-int8) allreduce and reducescatter, "
+            "world 1: " + json.dumps(quant))
+        for op, r in quant.items():
+            assert r["within_bound"] and r["differs_from_input"], (op, r)
+    finally:
+        GLOBAL_CONFIG.set_system_config_value("quantized_collectives",
+                                              False)
+    g.barrier()
+    return out
+
+
+def pipeline_stage_specs(cfg, n_stages=PIPE_TRAIN_STAGES):
+    """``cfg`` cut into ``n_stages`` stages of equal depth: stage 0 takes
+    the tokens through the embedding and its layers, the last ends in the
+    final norm and the f32 head (the logits); ``init`` draws a stage's
+    weights from its generator (llama.init_params of the stage's depth,
+    the parts it holds kept). Without remat: the stage's backward is
+    already a full recompute."""
+    import dataclasses
+
+    from ray_tpu_torch.train import StageSpec
+
+    sub = dataclasses.replace(cfg, n_layers=cfg.n_layers // n_stages,
+                              remat=False)
+
+    def make(first, last):
+        def init(gen):
+            from ray_tpu_torch.models import llama
+
+            p = llama.init_params(sub, gen, gen.device)
+            keep = ["layers"] + (["embed"] if first else []) + (
+                ["final_norm", "lm_head"] if last else [])
+            return {k: p[k] for k in keep}
+
+        def apply(p, x):
+            from ray_tpu_torch.models import llama
+            from ray_tpu_torch.ops.norms import rmsnorm
+            from ray_tpu_torch.ops.rope import rope_frequencies
+
+            if first:
+                x = p["embed"].to(sub.dtype)[x.long()]
+            cos, sin = rope_frequencies(sub.head_dim, sub.max_seq,
+                                        sub.rope_theta, device=x.device)
+            block = llama.make_block(sub, cos, sin)
+            names = list(p["layers"])
+            for ws in zip(*(p["layers"][n].unbind(0) for n in names)):
+                x = block(x, dict(zip(names, ws)))
+            if last:
+                x = llama._head_logits(
+                    rmsnorm(x, p["final_norm"], sub.norm_eps), p["lm_head"])
+            return x
+
+        return init, apply
+
+    return [StageSpec(*make(i == 0, i == n_stages - 1), name=f"stage{i}")
+            for i in range(n_stages)], sub
+
+
+def pipeline_loss(logits, y):
+    """Next-token cross entropy of the last stage's f32 logits."""
+    import torch
+
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
+
+
+class _PipeStageCounts:
+    """Mixed into the pipeline's stage actor (phase 13 (b)): the flash
+    launches and calls of the plain forward in the stage's own process,
+    counted from the start of its exec loop, a step's device time (its
+    forward, backward and fused programs, each between two synchronizes;
+    the other stage's work on the shared card can fall inside) and the
+    host time of its step boundaries (ravel, optimizer, unravel)."""
+
+    def run_pipeline(self, *args):
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        plain, self._plain = fa.flash_attention_fwd_reference, [0]
+
+        def counted(*a, **kw):
+            self._plain[0] += 1
+            return plain(*a, **kw)
+
+        fa.flash_attention_fwd_reference = counted
+        self._device_ms, self._step_device_ms, self._host_ms = [], [], []
+        reset_flash_launches()
+        return super().run_pipeline(*args)
+
+    def _build_fns(self, like):
+        import torch
+
+        def sync():
+            if self._device.type == "cuda":
+                torch.cuda.synchronize()
+
+        def timed(fn):
+            if fn is None:
+                return None
+
+            def run(*a):
+                sync()
+                t = time.perf_counter()
+                out = fn(*a)
+                sync()
+                self._device_ms.append(1e3 * (time.perf_counter() - t))
+                return out
+            return run
+
+        return tuple(timed(f) for f in super()._build_fns(like))
+
+    def _host_step(self, *args):
+        self._step_device_ms.append(sum(self._device_ms))
+        self._device_ms = []
+        t = time.perf_counter()
+        out = super()._host_step(*args)
+        self._host_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    def counts(self):
+        import torch
+
+        return {"launches": flash_launches(),
+                "plain_attention": self._plain[0], "pid": os.getpid(),
+                "grant": [os.environ.get("CUDA_VISIBLE_DEVICES"),
+                          torch.cuda.device_count()],
+                "device": str(self._device),
+                "device_ms": self._step_device_ms,
+                "host_step_ms": self._host_ms}
+
+
+def pipeline_reference(specs, loss, xs, ys, steps, lr, device, seed=0):
+    """The single-process step phase 13 (b) is held to: the same stage
+    functions (``_PipelineStageActor``'s forward, recomputing backward and
+    fused loss, in this process) composed on the same microbatches, each
+    stage's gradients summed in microbatch order and averaged over M, and
+    the same host step (``FlatOptimizer`` sgd on the flat f32 vector).
+    Returns each step's mean loss."""
+    import cloudpickle
+    import torch
+
+    from ray_tpu_torch.models.training import tree_leaves
+    from ray_tpu_torch.train import pipeline as pl
+    from ray_tpu_torch.train.collectives import FlatOptimizer
+
+    S, M = len(specs), len(xs)
+    stages = []
+    for i, s in enumerate(specs):
+        a = pl._PipelineStageActor(cloudpickle.dumps(
+            {"init": s.init, "apply": s.apply,
+             "loss": loss if i == S - 1 else None}), i, S, M, seed, "sgd",
+            lr)
+        a._device = device
+        tree = s.init(torch.Generator(device=device).manual_seed(seed + i))
+        stages.append({"actor": a, "leaves": [pl._on(x, device) for x in
+                                             tree_leaves(tree)],
+                       "fns": a._build_fns(tree), "state": None})
+        del tree
+    opt = FlatOptimizer(kind="sgd", lr=lr)
+    losses = []
+    for _ in range(steps):
+        acc = [None] * S
+        total = 0.0
+        for x, y in zip(xs, ys):
+            h, inputs = pl._on(x, device), []
+            for st in stages[:-1]:
+                inputs.append(h)
+                h = st["fns"][0](st["leaves"], h)
+            last = stages[-1]
+            lv, gp, g = last["fns"][2](last["leaves"], h, pl._on(y, device))
+            total += float(lv)
+            grads = {S - 1: gp}
+            for i in range(S - 2, -1, -1):
+                grads[i], g = stages[i]["fns"][1](stages[i]["leaves"],
+                                                  inputs[i], g)
+            for i, gp in grads.items():
+                acc[i] = gp if acc[i] is None else [
+                    a + b for a, b in zip(acc[i], gp)]
+            del inputs, h, g, grads
+        losses.append(total / M)
+        for i, st in enumerate(stages):
+            st["leaves"], st["state"] = st["actor"]._host_step(
+                st["leaves"], [a / M for a in acc[i]], opt, st["state"],
+                None, None)
+        del acc
+    return losses
+
+
+def pipeline_train_check(rt, device, model=PIPE_TRAIN_MODEL,
+                         n_stages=PIPE_TRAIN_STAGES, M=PIPE_TRAIN_M,
+                         seq=PIPE_TRAIN_SEQ, steps=PIPE_TRAIN_STEPS,
+                         lr=PIPE_TRAIN_LR, actor_options=None, seed=14):
+    """Phase 13 (b): ``PipelineRunner`` on ``model`` at full width and
+    depth as ``n_stages`` stage actors (``num_gpus=0.5`` each on the
+    card), M seeded (1, seq) microbatches, sgd, ``steps`` steps, the
+    channels sized to one (1, seq, hidden) activation; held to
+    :func:`pipeline_reference` run in this process first: the first loss
+    within PIPE_FIRST_RTOL (bit equality reported), the later within
+    PIPE_LATER_RTOL; each stage's flash launches in its own process as
+    the schedule implies (the first stage runs each microbatch's forward
+    twice, its slot and its recompute; the last runs the fused loss and
+    gradient once), the f32 K2a, K2b and the plain attention never; GPU
+    back to 1 after the runner's shutdown."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import PipelineRunner, PipelineSpec
+    from ray_tpu_torch.train import pipeline as pl
+
+    cfg = llama.CONFIGS[model]
+    specs, sub = pipeline_stage_specs(cfg, n_stages)
+    rng = np.random.default_rng(seed)
+    toks = [rng.integers(0, cfg.vocab_size, (1, seq + 1)).astype(np.int64)
+            for _ in range(M)]
+    xs, ys = [t[:, :-1] for t in toks], [t[:, 1:] for t in toks]
+    out = {"model": model, "stages": n_stages, "layers_per_stage":
+           sub.n_layers, "microbatches": M, "seq": seq, "lr": lr}
+
+    t = time.perf_counter()
+    out["reference_losses"] = pipeline_reference(specs, pipeline_loss, xs,
+                                                 ys, steps, lr, device)
+    out["reference_s"] = time.perf_counter() - t
+    log("[13] (b) single-process reference: " + json.dumps(
+        {k: out[k] for k in ("reference_losses", "reference_s")}))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    act_bytes = seq * cfg.hidden * torch.tensor([], dtype=cfg.dtype
+                                                ).element_size()
+    spec = PipelineSpec(stages=specs, loss=pipeline_loss,
+                        num_microbatches=M, optimizer="sgd",
+                        learning_rate=lr,
+                        channel_capacity=act_bytes + (64 << 10),
+                        device=None if device.type == "cuda" else "cpu")
+    out["channel_capacity"] = spec.channel_capacity
+    base = pl._PipelineStageActor
+    pl._PipelineStageActor = type(base.__name__, (_PipeStageCounts, base),
+                                  {})
+    t = time.perf_counter()
+    try:
+        runner = PipelineRunner(spec, actor_options=actor_options)
+    finally:
+        pl._PipelineStageActor = base
+    try:
+        losses, step_ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(runner.step(xs, ys, timeout_s=900)["loss"])
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        runner.finish(timeout_s=300)
+        counts = rt.get([h.counts.remote() for h in runner._actors],
+                        timeout=60)
+    finally:
+        runner.shutdown()
+    out.update({"losses": losses, "step_ms": step_ms,
+                "first_step_includes_start_s": step_ms[0] / 1e3,
+                "microbatches_per_s": [M / (ms / 1e3) for ms in step_ms],
+                "wall_s": time.perf_counter() - t, "stage_counts": counts})
+    ref = out["reference_losses"]
+    out["rel_err"] = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    out["first_loss_bit_equal"] = losses[0] == ref[0]
+    log("[13] (b) pipeline: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("stage_counts",)}))
+    log("[13] (b) stages: " + json.dumps(counts))
+    assert all(np.isfinite(losses)), losses
+    assert out["rel_err"][0] <= PIPE_FIRST_RTOL, out["rel_err"]
+    assert max(out["rel_err"]) <= PIPE_LATER_RTOL, out["rel_err"]
+    assert losses[1] != losses[0], losses   # the step moved the weights
+    L, n = sub.n_layers, M * steps
+    for i, c in enumerate(counts):
+        last = i == n_stages - 1
+        want = {"fwd": (1 if last else 2) * L * n, "bwd": L * n, "dq": 0,
+                "dkv": 0} if device.type == "cuda" else c["launches"]
+        assert c["launches"] == want, (i, c["launches"], want)
+        assert c["plain_attention"] == 0 or device.type != "cuda", c
+        assert c["pid"] != os.getpid(), c
+        if device.type == "cuda":
+            assert c["grant"] == ["0", 1], c
+    out["launches"] = {k: sum(c["launches"][k] for c in counts)
+                       for k in ("fwd", "bwd", "dq", "dkv")}
+    out["gpu_after_shutdown"] = _available_gpu(rt, 1.0)
+    if device.type == "cuda":
+        assert out["gpu_after_shutdown"] == 1.0, out["gpu_after_shutdown"]
+    return out
+
+
+def collectives_pipeline_check(device, smi=""):
+    """Phase 13 under a fresh init(): (a) :func:`nccl_group_check`, (b)
+    :func:`pipeline_train_check` with two half-GPU stages; after
+    shutdown() no process of the session is left."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import api
+
+    out = {"nvidia_smi": smi}
+    out["nccl"] = nccl_group_check(device)
+    rt.init()
+    session = api._head["session_dir"]
+    try:
+        out["pipeline"] = pipeline_train_check(
+            rt, device, actor_options={"num_gpus": 0.5})
+    finally:
+        rt.shutdown()
+    out["left_after_shutdown"] = _wait_session_gone(session)
+    assert out["left_after_shutdown"] == [], out["left_after_shutdown"]
+    log(f"[13] {smi}: " + json.dumps({
+        "nccl_exact_ms_f32": {k: v["ms"] for k, v in
+                              out["nccl"]["exact"]["float32"].items()},
+        "pipeline_step_ms": out["pipeline"]["step_ms"],
+        "pipeline_host_step_ms": [c["host_step_ms"] for c in
+                                  out["pipeline"]["stage_counts"]],
+        "pipeline_device_ms": [c["device_ms"] for c in
+                               out["pipeline"]["stage_counts"]]}))
+    return out
+
+
+def _wait_session_gone(session, within=30.0):
+    """The session's processes still alive ``within`` seconds after
+    shutdown() (none is the pass)."""
+    deadline = time.monotonic() + within
+    while _session_processes(session) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    return _session_processes(session)
+
+
+# ------------------------------------------------------------- phase 14
+# The MoE's expert axis: phase 8c's 8x7b weights and batch on a mesh of
+# one rank (an NCCL group of world 1) under FSDP_RULES, where the experts
+# shard over fsdp x sp.
+
+MOE_MESH_STEPS = 4
+MOE_SP_STEPS = 3
+
+
+def _moe_train(cfg, mesh, rules, init_fn, tokens, steps):
+    """``steps`` sharded train steps of the MoE ``cfg`` on ``mesh``: each
+    step's metrics and host ms (ended by the loss's read), the flash
+    launches over the steps."""
+    import torch
+
+    from ray_tpu_torch.models import moe, training
+    from ray_tpu_torch.parallel import shard_pytree
+
+    axes = moe.param_logical_axes(cfg)
+    opt = training.OptimizerConfig(warmup_steps=1, decay_steps=1000).make()
+    sharded = shard_pytree(init_fn(), axes, mesh, rules)
+    state, _ = training.init_train_state(
+        lambda g: sharded, opt, None, param_axes=axes, mesh=mesh,
+        rules=rules)
+    del sharded
+    step = training.make_train_step(
+        lambda p, b: moe.loss_fn(p, b, cfg, rules, mesh=mesh), opt, mesh,
+        rules)
+    reset_flash_launches()
+    metrics, ms = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        state, m = step(state, {"tokens": tokens})
+        metrics.append({k: float(v) for k, v in m.items()})
+        ms.append(1e3 * (time.perf_counter() - t))
+    launches = flash_launches()
+    del state, step
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return metrics, ms, launches
+
+
+def moe_mesh_check(device, phase8c, layers=MOE_LAYERS, batch=2, seq=2048,
+                   smi="", model="8x7b"):
+    """Phase 14: 8x7b at full width and ``layers`` layers, phase 8c's
+    weights (its generator of seed 0) and batch (seed 1), on a mesh of
+    one rank under FSDP_RULES. (a) MOE_MESH_STEPS steps: the first loss
+    within PIPE_FIRST_RTOL of 8c's mesh-less first loss (bit equality
+    reported), the first four within UPDATED_RTOL, the router's aux loss
+    as 8c holds it, K1 twice and flash_bwd_kernel once per layer per step;
+    (b) MOE_SP_STEPS steps with sp_axis="sp": the first two losses within
+    SP_RTOL of (a)'s, the third within UPDATED_RTOL, the same launches. At
+    sp = 1 the ring has one chunk: the rotation is checked on the CPU
+    only (tests/test_torch_parallel.py). 8c's step ms beside."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.parallel.sharding import FSDP_RULES
+
+    full = moe.CONFIGS[model]
+    cfg = dataclasses.replace(full, base=dataclasses.replace(
+        full.base, n_layers=layers))
+    gen = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.base.vocab_size, (batch, seq),
+                           generator=gen, device=device, dtype=torch.int32)
+
+    def init(c):
+        return lambda: moe.init_params(
+            c, torch.Generator(device=device).manual_seed(0), device)
+
+    mesh = make_mesh(MeshConfig(), device_type=device.type)
+    out = {"mesh_shape": list(mesh.shape),
+           "mesh_names": list(mesh.mesh_dim_names),
+           "backend": dist.get_backend(), "world": dist.get_world_size(),
+           "layers": layers, "rules": "FSDP_RULES",
+           "phase8c_step_ms": phase8c.get("step_ms"), "nvidia_smi": smi}
+    try:
+        m, ms, launches = _moe_train(cfg, mesh, FSDP_RULES, init(cfg),
+                                     tokens, MOE_MESH_STEPS)
+        losses = [x["loss"] for x in m]
+        want = phase8c["losses"][:MOE_MESH_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        out["mesh"] = {"losses": losses, "rel_err_vs_8c": rel,
+                       "first_loss_bit_equal": losses[0] == want[0],
+                       "aux_loss_step0": m[0]["aux_loss"],
+                       "dropped_frac": [x["dropped_frac"] for x in m],
+                       "step_ms": ms, "launches": launches}
+        log(f"[14] (a) {model} on a mesh of one: " + json.dumps(out["mesh"]))
+        assert rel[0] <= PIPE_FIRST_RTOL, rel
+        assert max(rel) <= UPDATED_RTOL, rel
+        assert 0.8 < m[0]["aux_loss"] < 1.5, m[0]
+        n = layers * MOE_MESH_STEPS
+        if device.type == "cuda":
+            assert launches == {"fwd": 2 * n, "bwd": n, "dq": 0,
+                                "dkv": 0}, launches
+
+        sp_cfg = dataclasses.replace(cfg, base=dataclasses.replace(
+            cfg.base, sp_axis="sp"))
+        m, ms, launches = _moe_train(sp_cfg, mesh, FSDP_RULES, init(sp_cfg),
+                                     tokens, MOE_SP_STEPS)
+        sp_losses = [x["loss"] for x in m]
+        rel = [abs(a - b) / abs(b) for a, b in zip(sp_losses, losses)]
+        out["sp_axis"] = {"losses": sp_losses, "rel_err_vs_mesh": rel,
+                          "bit_equal_vs_mesh": [a == b for a, b in
+                                                zip(sp_losses, losses)],
+                          "step_ms": ms, "launches": launches}
+        log(f"[14] (b) {model} with sp_axis='sp' (sp = 1: one ring chunk): "
+            + json.dumps(out["sp_axis"]))
+        assert max(rel[:2]) <= SP_RTOL, rel
+        assert rel[2] <= UPDATED_RTOL, rel
+        n = layers * MOE_SP_STEPS
+        if device.type == "cuda":
+            assert launches == {"fwd": 2 * n, "bwd": n, "dq": 0,
+                                "dkv": 0}, launches
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+# ------------------------------------------------------------- phase 15
+# RL: a PPO learner on the card against the same learner on the CPU, PPO
+# learning CartPole with a GPU learner, a GPU learner actor.
+
+RL_LEARNER_RTOL = 1e-5
+RL_ITERS = 12            # tests/test_rl.py:139-143's run
+
+
+def _rl_batch(params, steps=256, seed=0):
+    """Two local EnvRunners' CartPole-v1 fragments under ``params``, as
+    ``build_ppo_batch`` assembles them."""
+    from ray_tpu_torch.rl.env_runner import EnvRunner
+    from ray_tpu_torch.rl.learner import build_ppo_batch
+
+    frags = []
+    for i in range(2):
+        r = EnvRunner("CartPole-v1", seed=seed, worker_index=i)
+        r.set_weights(params, 0)
+        frags.append(r.sample(steps))
+    return build_ppo_batch(frags)
+
+
+def _rel_close(got, want, rtol):
+    """max over keys of |got - want| / max|want| (weights near 0, such
+    as biases that start at 0, are held relative to their leaf's scale)."""
+    import numpy as np
+
+    return max(float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max()
+                     / max(float(np.abs(np.asarray(want[k])).max()), 1e-12))
+               for k in want)
+
+
+class _LeaseLearner:
+    """Mixed into the PPO learner a LearnerGroup actor builds (phase 15
+    (c)): its update also reports the lease it sees."""
+
+    def update(self, batch):
+        import torch
+
+        m = super().update(batch)
+        m["lease_visible_is_0"] = float(
+            os.environ.get("CUDA_VISIBLE_DEVICES") == "0")
+        m["lease_device_count"] = float(torch.cuda.device_count())
+        m["learner_on_cuda"] = float(self.device.type == "cuda")
+        return m
+
+
+def rl_check(device, smi=""):
+    """Phase 15 under a fresh init(): (a) ``PPOLearner`` on ``device``
+    against the same learner on the CPU, ``PPOConfig``'s default width
+    (64, 64), the same batch (two local EnvRunners, 2 x 256 steps), one
+    update of 4 epochs of 128: metrics and weights within RL_LEARNER_RTOL;
+    (b) ``PPOConfig`` with tests/test_rl.py:125-146's settings at the
+    default width, two CPU env runners and the learner on ``device``,
+    RL_ITERS iterations: final return > max(2 x early, 60); env steps/s
+    and the learner's update ms; (c) a ``LearnerGroup`` of one
+    ``num_gpus=1`` learner actor sees its lease and its weights after one
+    update on (a)'s batch equal (a)'s learner's (bit equality reported);
+    GPU back to 1 after the group stops, and no process of the session
+    after shutdown()."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import api
+    from ray_tpu_torch.rl import PPOConfig
+    from ray_tpu_torch.rl.learner import PPOLearner
+    from ray_tpu_torch.rl.learner_group import LearnerGroup
+    from ray_tpu_torch.rl.module import init_policy_params
+
+    out = {"nvidia_smi": smi}
+    params = init_policy_params(4, 2, hidden=PPOConfig.hidden, seed=0)
+    batch, _, env_steps = _rl_batch(params)
+    dev_name = None if device.type == "cuda" else "cpu"
+    on_dev = PPOLearner(params, device=dev_name)
+    on_cpu = PPOLearner(params, device="cpu")
+    t = time.perf_counter()
+    m_dev = on_dev.update(batch)
+    update_ms = 1e3 * (time.perf_counter() - t)
+    m_cpu = on_cpu.update(batch)
+    w_dev, w_cpu = on_dev.get_weights(), on_cpu.get_weights()
+    out["learner"] = {
+        "device": str(on_dev.device), "env_steps": env_steps,
+        "update_ms": update_ms, "metrics": m_dev,
+        "metrics_rel_err": max(abs(m_dev[k] - m_cpu[k]) / max(
+            abs(m_cpu[k]), 1e-12) for k in m_cpu),
+        "weights_rel_err": _rel_close(w_dev, w_cpu, RL_LEARNER_RTOL)}
+    log("[15] (a) PPO learner, card vs CPU: " + json.dumps(out["learner"]))
+    assert out["learner"]["metrics_rel_err"] <= RL_LEARNER_RTOL, out
+    assert out["learner"]["weights_rel_err"] <= RL_LEARNER_RTOL, out
+
+    rt.init()
+    session = api._head["session_dir"]
+    try:
+        algo = (PPOConfig(seed=1, rollout_fragment_length=512,
+                          num_epochs=6, minibatch_size=256, lr=1e-3,
+                          learner_device=dev_name)
+                .environment("CartPole-v1").env_runners(2).build())
+        update = algo.learner.update
+        learner_ms = []
+
+        def timed_update(b):
+            t0 = time.perf_counter()
+            res = update(b)
+            learner_ms.append(1e3 * (time.perf_counter() - t0))
+            return res
+
+        algo.learner.update = timed_update
+        try:
+            t = time.perf_counter()
+            results = [algo.train() for _ in range(RL_ITERS)]
+            wall = time.perf_counter() - t
+        finally:
+            algo.stop()
+        returns = [r["env_runners"]["episode_return_mean"] for r in results]
+        sampled = sum(r["env_runners"]["num_env_steps_sampled"]
+                      for r in results)
+        early, final = returns[0], returns[-1]
+        out["ppo"] = {"returns": returns, "early": early, "final": final,
+                      "env_steps": sampled, "wall_s": wall,
+                      "env_steps_per_s": sampled / wall,
+                      "learner_update_ms": learner_ms,
+                      "learner_device": str(algo.learner.device)}
+        log("[15] (b) PPO on CartPole-v1, learner on the card: "
+            + json.dumps(out["ppo"]))
+        assert final > max(2 * early, 60.0), (early, final)
+
+        def factory(params=params, dev_name=dev_name):
+            from ray_tpu_torch.rl.learner import PPOLearner as _P
+
+            cls = type("PPOLearner", (_LeaseLearner, _P), {})
+            return cls(params, device=dev_name)
+
+        opts = {"num_gpus": 1} if device.type == "cuda" else {}
+        group = LearnerGroup(factory, num_learners=1, ray_remote_args=opts)
+        try:
+            gm = group.update(batch)
+            gw = group.get_weights()
+        finally:
+            group.shutdown()
+        out["group"] = {
+            "metrics": gm, "weights_rel_err": _rel_close(gw, w_dev, 0),
+            "bit_equal_to_learner": all(np.array_equal(gw[k], w_dev[k])
+                                        for k in w_dev)}
+        out["gpu_after_group"] = _available_gpu(rt, 1.0)
+        log("[15] (c) LearnerGroup of one num_gpus=1 learner: "
+            + json.dumps(out["group"]))
+        if device.type == "cuda":
+            assert gm["lease_visible_is_0"] == 1.0, gm
+            assert gm["lease_device_count"] == 1.0, gm
+            assert gm["learner_on_cuda"] == 1.0, gm
+            assert out["gpu_after_group"] == 1.0, out["gpu_after_group"]
+        assert out["group"]["weights_rel_err"] <= RL_LEARNER_RTOL, out
+    finally:
+        rt.shutdown()
+    out["left_after_shutdown"] = _wait_session_gone(session)
+    assert out["left_after_shutdown"] == [], out["left_after_shutdown"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3279,7 +4055,32 @@ def main() -> int:
     report["train_lib_s"] = time.perf_counter() - t
     log(f"[12] phase time {report['train_lib_s']:.1f} s")
 
-    # 13. the kernels line and the result line
+    # 13. the NCCL group at world 1 (exact and quantized), then 1b trained
+    # as two GPU pipeline stages under a fresh init()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    report["coll_pipe"] = collectives_pipeline_check(device, smi=smi)
+    report["coll_pipe_s"] = time.perf_counter() - t
+    log(f"[13] phase time {report['coll_pipe_s']:.1f} s")
+
+    # 14. the MoE's expert axis: 8c's 8x7b on a mesh of one rank, then the
+    # sp_axis path
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    report["moe_mesh"] = moe_mesh_check(device, report["train_moe"],
+                                        smi=smi)
+    report["moe_mesh_s"] = time.perf_counter() - t
+    log(f"[14] {smi}: phase time {report['moe_mesh_s']:.1f} s")
+
+    # 15. RL: the PPO learner on the card against the CPU, PPO learning
+    # CartPole, a num_gpus=1 learner actor
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    report["rl"] = rl_check(device, smi=smi)
+    report["rl_s"] = time.perf_counter() - t
+    log(f"[15] {smi}: phase time {report['rl_s']:.1f} s")
+
+    # 16. the kernels line and the result line
     k = report["kernels"]
     lines = []
     for name, kind_, src_kernel, replaces in (
@@ -3318,9 +4119,9 @@ def main() -> int:
             "float32": k[kind_]["float32"], **extra})
     fl = report["flash"]["1b_bench"]
     # launches: every training path's run, each read around itself; bf16:
-    # phases 8 (1b_bench), 8c (8x7b), 8d (ViT-B16) and 8e (1b_bench under
-    # both remat policies); f32: phases 7 (debug Llama) and 8b (debug MoE
-    # and ViT)
+    # phases 8 (1b_bench), 8c (8x7b), 8d (ViT-B16), 8e (1b_bench under
+    # both remat policies), 11-14; f32: phases 7 (debug Llama) and 8b
+    # (debug MoE and ViT)
     paths = {"bfloat16": {
         "1b_bench": report["train"]["launches"],
         "8x7b": report["train_moe"]["launches"],
@@ -3333,7 +4134,12 @@ def main() -> int:
             "pipeline"]["stages"]), "bwd": 0, "dq": 0, "dkv": 0},
         # phase 12: the Train worker's (a) and (b), read in its process
         "1b_bench_train_gang": report["train_lib"]["launches"],
-        "1b_bench_sp_axis": report["train_lib"]["sp_launches"]},
+        "1b_bench_sp_axis": report["train_lib"]["sp_launches"],
+        # phase 13 (b): both pipeline stages, each read in its process
+        "1b_pipeline": report["coll_pipe"]["pipeline"]["launches"],
+        # phase 14: 8x7b on the mesh, then its sp_axis path
+        "8x7b_mesh": report["moe_mesh"]["mesh"]["launches"],
+        "8x7b_mesh_sp_axis": report["moe_mesh"]["sp_axis"]["launches"]},
         "float32": {
         "debug_llama": report["debug_train"]["launches"],
         "debug_moe": report["family_debug"]["moe"]["launches"],

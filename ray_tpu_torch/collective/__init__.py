@@ -12,9 +12,14 @@ Backends:
   internal KV exactly as the reference's collective groups bootstrap via
   the GCS). A CUDA tensor is staged to the host and comes back on its
   own device.
-- ``"xla"`` (or ``"nccl"``) — the in-program backend, NCCL on the GPU;
-  it refuses until ROADMAP item 12b, and so does the KV backend's
-  block-int8 quantized wire mode.
+- ``"xla"`` (or ``"nccl"``) — the in-program backend: one process owns
+  the group's devices, ops take a stacked tensor whose leading axis is the
+  member axis, and the collective is NCCL's across the devices
+  (``torch.cuda.nccl``), or the same reduction as tensor ops on CPU
+  slabs.
+
+Both backends take the block-int8 quantized form of float SUM reductions
+when ``RT_quantized_collectives`` is on (``quantization.py``).
 """
 
 from ray_tpu_torch.collective.collective import (  # noqa: F401

@@ -4,8 +4,8 @@ Same call surface as the reference — ``init_collective_group`` inside each
 member, or ``create_collective_group`` on the driver to declare a group over
 actor handles (members then lazily join on their first collective call,
 reference ``collective.py:187-253``). The KV backend runs between host
-processes; the in-program backend (``"xla"``, NCCL on the GPU) refuses
-until ROADMAP item 12b.
+processes; the in-program backend (``"xla"``, or ``"nccl"``) runs NCCL
+across the devices one process owns (``xla_group.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Dict, List, Optional
 
 from ray_tpu_torch.collective.types import Backend, ReduceOp
 from ray_tpu_torch.collective.kv_group import KVGroup
-from ray_tpu_torch.common.status import not_ported
+from ray_tpu_torch.collective.xla_group import XlaGroup
 
 _DECLARED_NS = "collective:_declared"
 
@@ -41,9 +41,11 @@ class GroupManager:
         with self._lock:
             if group_name in self._groups:
                 raise RuntimeError(f"group {group_name!r} already initialized")
-            if backend is not Backend.KV:
-                raise not_ported("collective")
-            group = KVGroup(_gcs(), world_size, rank, group_name, **kwargs)
+            if backend is Backend.KV:
+                group = KVGroup(_gcs(), world_size, rank, group_name,
+                                **kwargs)
+            else:
+                group = XlaGroup(world_size, rank, group_name, **kwargs)
             self._groups[group_name] = group
             return group
 

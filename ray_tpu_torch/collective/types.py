@@ -6,7 +6,7 @@ import enum
 
 
 class Backend(str, enum.Enum):
-    XLA = "xla"    # in-program collectives; NCCL on the GPU (ROADMAP item 12b)
+    XLA = "xla"    # in-program collectives; NCCL on the GPU (xla_group.py)
     KV = "kv"      # GCS-KV transport between host processes (gloo's role)
 
     @classmethod

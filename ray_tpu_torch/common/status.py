@@ -123,13 +123,11 @@ WAITING = {
     "cli": "queue A item 11, the CLI (python -m ray_tpu_torch start)",
     "data": "queue A item 11, Data",
     "tune": "queue A item 11, Tune",
-    "collective": "queue A item 12b, the NCCL backend of collectives (the "
-                  "JAX package's in-program xla backend, xla_group.py)",
-    "collective_quantized": "queue A item 12b, quantized collectives "
-                            "(block-int8 allreduce, quantization.py)",
-    "train_pipeline": "queue A item 12b, Train's pipeline mode "
-                      "(pipeline_spec=, train/pipeline.py)",
-    "rl": "queue A item 14, RL",
+    "rl_later": "queue A item 14, part 2, RL beyond PPO (DQN, SAC, CQL, "
+                "MARWIL, IMPALA, APPO, DreamerV3, offline, multi-agent, "
+                "replay)",
+    "rl_anakin": "queue A item 14, part 2, RL's Podracer (Anakin in-graph "
+                 "envs and Sebulba scale-out, rl/podracer.py)",
 }
 
 

@@ -275,12 +275,20 @@ def _head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 
 
 def _attention(x, layer, cos, sin, config: LlamaConfig,
-               rules: Optional[ShardingRules] = None, mesh=None):
+               rules: Optional[ShardingRules] = None, mesh=None,
+               positions=None):
+    """Causal self-attention of one layer; ``positions`` (B, S) places
+    RoPE at those positions instead of 0..S-1 (unsharded activations
+    only)."""
     if is_dtensor(x):
+        if positions is not None:
+            raise NotImplementedError(
+                "positions= on sharded activations is not ported: RoPE "
+                "takes each sequence chunk's own offsets there")
         return _attention_sharded(x, layer, cos, sin, config, rules, mesh)
     q, k, v = _qkv(x, layer)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q = apply_rope(q, cos, sin, positions)
+    k = apply_rope(k, cos, sin, positions)
     out = flash_attention(q, k, v, causal=True, block=config.attn_block)
     return _attn_out(out, layer)
 

@@ -13,8 +13,23 @@ by :func:`loss_fn`, whose contract is ``llama.loss_fn``'s, so
 Dispatch ``tec,th->ech`` and combine ``tec,ech->th`` are matrix products
 over the flattened (token, expert·slot) axes, and the expert FFN
 ``ech,ehm->ecm`` a ``torch.bmm`` over the stacked (E, H, M) weights, as the
-JAX package computes them outside any Pallas kernel. Expert parallelism
-(the ``expert`` axis sharded over a mesh) belongs to ROADMAP item 12b.
+JAX package computes them outside any Pallas kernel.
+
+Expert parallelism: on DTensor parameters
+(:func:`ray_tpu_torch.parallel.sharding.shard_pytree`, the stacked experts
+on the ``expert`` logical axis, which the rule tables map to fsdp × sp),
+``forward`` and ``loss_fn`` lay activations out at the JAX package's
+``with_logical_constraint`` points and DTensor inserts the collectives:
+the flattened tokens at ("tokens", "embed"), dispatch and combine at
+("tokens", None, None), the expert inputs and outputs at ("expert", None,
+"embed"), so the dispatch product ends in a reduce-scatter onto each
+rank's experts and the expert products run on each rank's own experts.
+Routing needs every token's logits in token order (capacity is claimed
+in that order), so the (T, E) router logits are gathered to every rank
+and the routing runs on that local copy, the same on each rank; the
+dispatch and combine tensors it gives enter DTensor as replicated values.
+Attention is llama's sharded path (with ``sp_axis`` its ring), whose
+kernels see local shards only.
 """
 
 from __future__ import annotations
@@ -30,6 +45,8 @@ from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.remat import remat
 from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.rope import rope_frequencies
+from ray_tpu_torch.parallel.sharding import (ShardingRules, is_dtensor,
+                                             with_logical_constraint)
 
 Params = Dict[str, Any]
 
@@ -128,30 +145,38 @@ def init_params(config: MoEConfig, generator: torch.Generator,
 
 def _route(xt: torch.Tensor, router: torch.Tensor, config: MoEConfig):
     """Top-k routing of the (T, H) tokens with static capacity C: returns
-    the f32 router logits (T, E), probabilities, the k-choices' gate
-    weights and experts (T, K), the 0/1 dispatch and the gate-weighted
-    combine tensors (T, E, C) in f32, and each expert's share of all
-    top-k assignments (E,).
+    the f32 router logits (T, E), and what :func:`_route_logits` gives
+    for them."""
+    logits = xt.float() @ router
+    return (logits, *_route_logits(logits, config))
+
+
+def _route_logits(logits: torch.Tensor, config: MoEConfig):
+    """Top-k routing of the f32 router logits (T, E) with static capacity
+    C: returns the probabilities, the k-choices' gate weights and experts
+    (T, K), the 0/1 dispatch and the gate-weighted combine tensors
+    (T, E, C) in f32, and each expert's share of all top-k assignments
+    (E,).
 
     The k-th choices claim capacity after the (k-1)-th, each in token
     order (GShard). Ties go to the lower expert index, as in
     ``jax.lax.top_k``: a stable descending sort. A token over capacity gets
     an all-zero slot row (``jax.nn.one_hot`` of an index past C), built by
     comparison since ``F.one_hot`` refuses such indices."""
-    T = xt.shape[0]
+    T = logits.shape[0]
     E, K = config.n_experts, config.top_k
     C = config.capacity(T)
-    logits = xt.float() @ router
+    dev = logits.device
     probs = torch.softmax(logits, dim=-1)
     top_w, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_idx = top_w[:, :K], top_idx[:, :K]
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp(min=1e-9)
 
-    slots = torch.arange(C, device=xt.device)
+    slots = torch.arange(C, device=dev)
     dispatch = combine = torch.zeros((T, E, C), dtype=torch.float32,
-                                     device=xt.device)
-    counts = torch.zeros((E,), dtype=torch.long, device=xt.device)
-    frac = torch.zeros((E,), dtype=torch.float32, device=xt.device)
+                                     device=dev)
+    counts = torch.zeros((E,), dtype=torch.long, device=dev)
+    frac = torch.zeros((E,), dtype=torch.float32, device=dev)
     for k in range(K):
         mask = F.one_hot(top_idx[:, k], E)                        # (T, E)
         pos = counts[None, :] + torch.cumsum(mask, dim=0) - mask
@@ -163,15 +188,39 @@ def _route(xt: torch.Tensor, router: torch.Tensor, config: MoEConfig):
         dispatch = dispatch + maskf * slot[:, None, :]
         combine = combine + maskf * (slot * top_w[:, k, None])[:, None, :]
         frac = frac + mask.sum(0) / T
-    return logits, probs, top_w, top_idx, dispatch, combine, frac
+    return probs, top_w, top_idx, dispatch, combine, frac
 
 
-def _moe_mlp(x: torch.Tensor, layer: Params,
-             config: MoEConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
+def _router_metrics(logits, probs, frac, dropped, config: MoEConfig):
+    """The Switch aux loss, E Σ_e (share of top-k assignments)_e · mean
+    prob_e, minimised by uniform routing (the share counts assignments
+    before any drop); the router z-loss; and ``dropped``, the share of
+    (token, k) slots dropped at capacity. Taken after the expert
+    products, as in the JAX package: a recomputing backward then stops
+    at the combine product's input."""
+    E, K = config.n_experts, config.top_k
+    aux = E * ((frac / K) * probs.mean(0)).sum()
+    z = torch.logsumexp(logits, dim=-1).square().mean()
+    return {"aux": aux, "router_z": z, "dropped": dropped}
+
+
+def _experts(expert_in, layer: Params, dtype):
+    """The expert FFN ``ech,ehm->ecm``, silu-gated, and ``ecm,emh->ech``:
+    (E, C, H) → (E, C, H)."""
+    g = torch.bmm(expert_in, layer["we_gate"].to(dtype))
+    u = torch.bmm(expert_in, layer["we_up"].to(dtype))
+    return torch.bmm(F.silu(g) * u, layer["we_down"].to(dtype))
+
+
+def _moe_mlp(x: torch.Tensor, layer: Params, config: MoEConfig,
+             rules: Optional[ShardingRules] = None
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Top-k routed expert FFN with static capacity: x (B, S, H) → (B, S,
     H), and the router's aux, z and dropped metrics. Dispatch and combine
     are built in f32 and rounded to the activation dtype before their
     products, as in the JAX package, so bf16 gate weights are rounded."""
+    if is_dtensor(x):
+        return _moe_mlp_sharded(x, layer, config, rules or ShardingRules())
     B, S, H = x.shape
     T, E, K = B * S, config.n_experts, config.top_k
     xt = x.reshape(T, H)
@@ -186,71 +235,116 @@ def _moe_mlp(x: torch.Tensor, layer: Params,
     combine_x = combine.to(x.dtype).reshape(T, E * C)
     del combine
     expert_in = (dispatch_x.T @ xt).reshape(E, C, H)             # tec,th
-    g = torch.bmm(expert_in, layer["we_gate"].to(x.dtype))
-    u = torch.bmm(expert_in, layer["we_up"].to(x.dtype))
-    y = torch.bmm(F.silu(g) * u, layer["we_down"].to(x.dtype))   # (E, C, H)
+    y = _experts(expert_in, layer, x.dtype)                       # (E, C, H)
     out = combine_x @ y.reshape(E * C, H)                         # tec,ech
-    # Switch aux loss, E Σ_e (share of top-k assignments)_e · mean prob_e,
-    # minimised by uniform routing; the share counts assignments before
-    # any drop
-    aux = E * ((frac / K) * probs.mean(0)).sum()
-    z = torch.logsumexp(logits, dim=-1).square().mean()
-    return out.reshape(B, S, H), {"aux": aux, "router_z": z,
-                                  "dropped": dropped}
+    return out.reshape(B, S, H), _router_metrics(logits, probs, frac,
+                                                 dropped, config)
 
 
-def forward(params: Params, tokens: torch.Tensor, config: MoEConfig):
+def _moe_mlp_sharded(x, layer: Params, config: MoEConfig,
+                     rules: ShardingRules):
+    """:func:`_moe_mlp` on DTensor activations and parameters. The router
+    logits of the token shards are gathered to every rank, where the
+    routing and the router metrics run on that local copy (plain tensors,
+    the same on each rank); dispatch and combine re-enter DTensor as
+    replicated values laid out at ("tokens", None, None), so every product
+    and its collectives is DTensor's."""
+    from torch.distributed.tensor import Replicate
+
+    from ray_tpu_torch.models.llama import _from_local
+
+    B, S, H = x.shape
+    T, E, K = B * S, config.n_experts, config.top_k
+    dmesh = x.device_mesh
+    # the flattened token layout, the merge of the batch and seq
+    # shardings (the JAX package's constraint at this point)
+    xt = with_logical_constraint(x.reshape(T, H), ("tokens", "embed"), rules)
+    replicated = [Replicate()] * dmesh.ndim
+    logits = (xt.float() @ layer["router"]).redistribute(
+        dmesh, replicated).to_local()
+    probs, _, _, dispatch, combine, frac = _route_logits(logits, config)
+    C = dispatch.shape[-1]
+    dropped = 1.0 - dispatch.sum() / (T * K)
+
+    def placed(t):
+        t = _from_local(t.to(x.dtype), dmesh, replicated, (T, E, C))
+        return with_logical_constraint(t, ("tokens", None, None),
+                                       rules).reshape(T, E * C)
+
+    dispatch_x, combine_x = placed(dispatch), placed(combine)
+    del dispatch, combine
+    expert_in = (dispatch_x.T @ xt).reshape(E, C, H)             # tec,th
+    expert_in = with_logical_constraint(expert_in, ("expert", None, "embed"),
+                                        rules)
+    y = _experts(expert_in, layer, x.dtype)
+    y = with_logical_constraint(y, ("expert", None, "embed"), rules)
+    out = combine_x @ y.reshape(E * C, H)                         # tec,ech
+    return out.reshape(B, S, H), _router_metrics(logits, probs, frac,
+                                                 dropped, config)
+
+
+def forward(params: Params, tokens: torch.Tensor, config: MoEConfig,
+            rules: Optional[ShardingRules] = None,
+            positions: Optional[torch.Tensor] = None, mesh=None):
     """tokens (B, S) integer → (logits (B, S, V) f32, the router metrics
-    averaged over the layers)."""
+    averaged over the layers).
+
+    On DTensor parameters the logits are a DTensor at ("batch", "seq",
+    "vocab") under ``rules`` and the metrics plain tensors, the same on
+    every rank; ``mesh`` is needed for the sequence-parallel (ring
+    attention) path only, and ``sp_axis`` refuses without it."""
     c = config.base
-    # no mesh here: sp_axis refuses until the MoE's sharded path (the
-    # expert axis, ROADMAP item 12b) comes
-    llama.check_sp_axis(c)
-    tokens = tokens.long()
-    x = params["embed"].to(c.dtype)[tokens]
-    cos, sin = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta,
-                                device=x.device)
+    rules = rules or ShardingRules()
+    llama.check_sp_axis(c, mesh)
+    with llama._mesh_context(params):
+        x = llama._embed(params, tokens.long(), c, rules)
+        cos, sin = rope_frequencies(
+            c.head_dim, c.max_seq, c.rope_theta,
+            device=(x.to_local() if is_dtensor(x) else x).device)
 
-    def block(x, layer):
-        x = x + llama._attention(rmsnorm(x, layer["attn_norm"], c.norm_eps),
-                                 layer, cos, sin, c)
-        h, metrics = _moe_mlp(rmsnorm(x, layer["mlp_norm"], c.norm_eps),
-                              layer, config)
-        return x + h, metrics
+        def block(x, layer):
+            x = x + llama._attention(
+                rmsnorm(x, layer["attn_norm"], c.norm_eps), layer, cos, sin,
+                c, rules, mesh, positions)
+            x = llama._constrain(x, ("batch", "seq", "embed"), rules)
+            h, metrics = _moe_mlp(rmsnorm(x, layer["mlp_norm"], c.norm_eps),
+                                  layer, config, rules)
+            x = llama._constrain(x + h, ("batch", "seq", "embed"), rules)
+            return x, metrics
 
-    if c.remat:
-        block = remat(block, c.remat_policy)
-    names = list(params["layers"])
-    per_layer = []
-    for ws in zip(*(params["layers"][n].unbind(0) for n in names)):
-        x, metrics = block(x, dict(zip(names, ws)))
-        per_layer.append(metrics)
-    x = rmsnorm(x, params["final_norm"], c.norm_eps)
-    head = params["embed"].T if c.tie_embeddings else params["lm_head"]
-    logits = llama._head_logits(x, head)
+        if c.remat:
+            block = remat(block, c.remat_policy)
+        names = list(params["layers"])
+        per_layer = []
+        for ws in zip(*(params["layers"][n].unbind(0) for n in names)):
+            x, metrics = block(x, dict(zip(names, ws)))
+            per_layer.append(metrics)
+        x = rmsnorm(x, params["final_norm"], c.norm_eps)
+        head = params["embed"].T if c.tie_embeddings else params["lm_head"]
+        logits = llama._head(x, head, rules)
     return logits, {k: torch.stack([m[k] for m in per_layer]).mean()
                     for k in per_layer[0]}
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
-            config: MoEConfig):
+            config: MoEConfig, rules: Optional[ShardingRules] = None,
+            mesh=None):
     """Next-token cross entropy plus the router's auxiliary losses; the
-    batch and the result as in ``llama.loss_fn``, with the metrics
-    ``ce``, ``aux_loss``, ``router_z`` and ``dropped_frac`` besides."""
-    tokens = batch["tokens"].long()
-    logits, moe = forward(params, tokens, config)
-    logits = logits[:, :-1]
-    targets = tokens[:, 1:]
-    mask = batch.get("mask")
-    mask = (torch.ones_like(targets, dtype=torch.float32) if mask is None
-            else mask[:, :-1].float())
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, targets[..., None])[..., 0]
-    denom = mask.sum().clamp(min=1.0)
-    ce = (nll * mask).sum() / denom
+    batch and the result as in ``llama.loss_fn`` (plain tensors also on
+    DTensor parameters), with the metrics ``ce``, ``aux_loss``,
+    ``router_z`` and ``dropped_frac`` besides."""
+    rules = rules or ShardingRules()
+    with llama._mesh_context(params):
+        tokens = with_logical_constraint(batch["tokens"].long(),
+                                         ("batch", "seq"), rules)
+        logits, moe = forward(params, tokens, config, rules, mesh=mesh)
+        nll, correct, denom = llama._summed_terms(
+            logits, tokens, batch.get("mask"), rules)
+    denom = denom.clamp(min=1.0)
+    ce = nll / denom
     loss = (ce + config.aux_loss_coef * moe["aux"]
             + config.router_z_coef * moe["router_z"])
-    acc = ((logits.argmax(-1) == targets) * mask).sum() / denom
-    return loss, {"loss": loss, "ce": ce, "accuracy": acc, "tokens": denom,
-                  "aux_loss": moe["aux"], "router_z": moe["router_z"],
+    return loss, {"loss": loss, "ce": ce, "accuracy": correct / denom,
+                  "tokens": denom, "aux_loss": moe["aux"],
+                  "router_z": moe["router_z"],
                   "dropped_frac": moe["dropped"]}

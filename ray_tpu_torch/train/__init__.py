@@ -1,5 +1,5 @@
 """Train library — Train-v2-shaped distributed training on GPUs (port of
-``ray_tpu/train``, less its pipeline mode, ROADMAP item 12b).
+``ray_tpu/train``).
 
 Reference architecture (reference ``python/ray/train/v2/``): controller
 state-machine loop + gang-scheduled worker group + scaling / failure
@@ -7,7 +7,9 @@ policies + checkpoint manager. Rank 0 publishes a coordinator address in
 its worker's context and every worker joins one ``torch.distributed``
 process group (``TrainContext.init_jax_distributed``: NCCL on GPU
 workers), after which the mesh and DTensor carry the parallelism
-(:mod:`ray_tpu_torch.parallel`).
+(:mod:`ray_tpu_torch.parallel`). ``JaxTrainer(pipeline_spec=)`` trains
+MPMD instead: resident stage actors on shm channel hops
+(:mod:`ray_tpu_torch.train.pipeline`).
 """
 
 from ray_tpu_torch.train.checkpoint import (  # noqa: F401
@@ -27,6 +29,11 @@ from ray_tpu_torch.train.context import (  # noqa: F401
     get_context,
     get_dataset_shard,
     report,
+)
+from ray_tpu_torch.train.pipeline import (  # noqa: F401
+    PipelineRunner,
+    PipelineSpec,
+    StageSpec,
 )
 from ray_tpu_torch.train.scaling_policy import (  # noqa: F401
     ElasticScalingPolicy,

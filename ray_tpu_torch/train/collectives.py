@@ -145,7 +145,8 @@ class FlatOptimizer:
 class ZeroShardedOptimizer:
     """ZeRO stage-1/2 weight update over a member-style collective group
     (each member calls with its own full-size local arrays; KVGroup is the
-    cross-process transport; its quantized wire is not ported yet).
+    cross-process transport, and its quantized wire carries the
+    reducescatter when ``RT_quantized_collectives`` is on).
 
     The flat vector is zero-padded to a multiple of ``world_size``; this
     member owns contiguous shard ``rank`` and holds optimizer state for

@@ -92,14 +92,14 @@ class JaxTrainer:
                  scaling_policy=None,
                  datasets: Optional[dict] = None,
                  pipeline_spec=None):
-        if pipeline_spec is not None:
-            raise not_ported("train_pipeline")
         if datasets:
             raise not_ported("data")
-        if train_loop_per_worker is None:
+        if (train_loop_per_worker is None) == (pipeline_spec is None):
             raise ValueError(
-                "JaxTrainer needs train_loop_per_worker (SPMD gang mode)")
+                "JaxTrainer needs exactly one of train_loop_per_worker "
+                "(SPMD gang mode) or pipeline_spec (MPMD pipeline mode)")
         self.train_fn = train_loop_per_worker
+        self.pipeline_spec = pipeline_spec
         self.config = train_loop_config
         self.scaling = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
@@ -114,6 +114,8 @@ class JaxTrainer:
             self.run_config.storage_path
             or os.path.expanduser("~/ray_tpu_torch_results"), name)
         os.makedirs(storage, exist_ok=True)
+        if self.pipeline_spec is not None:
+            return self._fit_pipeline(storage, timeout_s)
         manager = CheckpointManager(storage,
                                     self.run_config.checkpoint_config)
         if self.resume_from is None:
@@ -137,6 +139,35 @@ class JaxTrainer:
         self._policy = policy
         return self._fit_loop(sc, policy, manager, name, storage,
                               time.monotonic() + timeout_s)
+
+    def _fit_pipeline(self, storage: str, timeout_s: float) -> Result:
+        """MPMD pipeline mode: stage actors on channel hops instead of an
+        SPMD gang (train/pipeline.py). ``pipeline_spec.data_fn(step)``
+        supplies each step's ``(xs, ys)`` microbatch lists; the final
+        per-stage params land in ``Result.metrics['stage_params']``."""
+        from ray_tpu_torch.graph.compiled import PipelineStageError
+        from ray_tpu_torch.train.pipeline import PipelineRunner
+
+        spec = self.pipeline_spec
+        if spec.data_fn is None:
+            raise ValueError(
+                "pipeline mode needs pipeline_spec.data_fn(step) -> (xs, ys)")
+        deadline = time.monotonic() + timeout_s
+        runner = PipelineRunner(spec)
+        metrics: Dict[str, Any] = {}
+        try:
+            for step in range(spec.num_steps):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("JaxTrainer.fit timeout exceeded")
+                xs, ys = spec.data_fn(step)
+                metrics = runner.step(xs, ys)
+            metrics["stage_params"] = runner.finish()
+        except PipelineStageError as e:
+            raise TrainingFailedError(
+                f"pipeline training failed: {e}") from e
+        finally:
+            runner.shutdown()
+        return Result(metrics=metrics, checkpoint=None, path=storage)
 
     def _fit_loop(self, sc, policy, manager, name, storage, deadline):
         from ray_tpu_torch.train.scaling_policy import ResizeDecision

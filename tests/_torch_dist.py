@@ -192,48 +192,65 @@ def _llama_config(sp_axis=None):
     return dataclasses.replace(llama.CONFIGS["debug"], sp_axis=sp_axis)
 
 
-def sharded_loss(config_kw, rules_name, params, tokens, sp_axis=None):
-    """The debug Llama's loss and accuracy on sharded parameters."""
+def _family(name, sp_axis=None):
+    """(model module, its debug config with ``sp_axis``, its logical axes)
+    of the family ``name``: "llama" or "moe"."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama, moe
+
+    if name == "moe":
+        cfg = moe.CONFIGS["debug"]
+        cfg = dataclasses.replace(cfg, base=dataclasses.replace(
+            cfg.base, sp_axis=sp_axis))
+        return moe, cfg, moe.param_logical_axes(cfg)
+    cfg = _llama_config(sp_axis)
+    return llama, cfg, llama.param_logical_axes(cfg)
+
+
+def sharded_loss(config_kw, rules_name, params, tokens, sp_axis=None,
+                 family="llama"):
+    """The debug model's loss and accuracy on sharded parameters (with
+    the MoE's router metrics)."""
     import torch
 
-    from ray_tpu_torch.models import llama
     from ray_tpu_torch.parallel import shard_pytree
 
-    cfg = _llama_config(sp_axis)
+    model, cfg, axes = _family(family, sp_axis)
     mesh, rules = _mesh(config_kw), _rules(rules_name)
-    placed = shard_pytree(_tensors(params), llama.param_logical_axes(cfg),
-                          mesh, rules)
+    placed = shard_pytree(_tensors(params), axes, mesh, rules)
     with torch.no_grad():
-        loss, aux = llama.loss_fn(placed, {"tokens": torch.from_numpy(
+        loss, aux = model.loss_fn(placed, {"tokens": torch.from_numpy(
             tokens)}, cfg, rules, mesh=mesh)
-    return {"loss": loss.item(), "accuracy": aux["accuracy"].item(),
-            "tokens": aux["tokens"].item()}
+    return {"loss": loss.item(), **{k: v.item() for k, v in aux.items()}}
 
 
-def sharded_train(config_kw, rules_name, params, tokens, opt_kw, steps):
-    """``steps`` sharded train steps of the debug Llama: each step's
+def sharded_train(config_kw, rules_name, params, tokens, opt_kw, steps,
+                  family="llama"):
+    """``steps`` sharded train steps of the debug model: each step's
     metrics, the gathered parameters after them, and the placements of
     the state's leaves."""
     import torch
 
-    from ray_tpu_torch.models import llama, training
+    from ray_tpu_torch.models import training
     from ray_tpu_torch.parallel.sharding import set_mesh
 
-    cfg = _llama_config()
+    model, cfg, axes = _family(family)
     mesh, rules = _mesh(config_kw), _rules(rules_name)
     opt = training.OptimizerConfig(**opt_kw).make()
-    axes = llama.param_logical_axes(cfg)
     with set_mesh(mesh):
         state, shardings = training.init_train_state(
             lambda g: _tensors(params), opt, None, param_axes=axes,
             mesh=mesh, rules=rules)
     step = training.make_train_step(
-        lambda p, b: llama.loss_fn(p, b, cfg, rules, mesh=mesh), opt,
+        lambda p, b: model.loss_fn(p, b, cfg, rules, mesh=mesh), opt,
         mesh, rules)
     metrics = []
     for _ in range(steps):
         state, m = step(state, {"tokens": torch.from_numpy(tokens)})
         metrics.append({k: float(v) for k, v in m.items()})
+    if family != "llama":
+        return {"metrics": metrics, "params": _numpy(state.params)}
     mu_wq = state.opt_state.mu["layers"]["wq"]
     wq = state.params["layers"]["wq"]
     return {"metrics": metrics, "params": _numpy(state.params),

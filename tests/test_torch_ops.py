@@ -214,8 +214,9 @@ def test_native_loaders_build_the_ports_own_sources():
 
 
 def test_new_modules_import_without_jax_or_ray_tpu():
-    """The modules of the graph slice load in a fresh interpreter with no
-    jax and nothing of ray_tpu in ``sys.modules``."""
+    """The modules of the graph, parallel, train, collective and RL
+    slices load in a fresh interpreter with no jax and nothing of ray_tpu
+    in ``sys.modules``."""
     import subprocess
     import sys
 
@@ -225,6 +226,11 @@ def test_new_modules_import_without_jax_or_ray_tpu():
             "import ray_tpu_torch.models.pipeline\n"
             "import ray_tpu_torch.parallel, ray_tpu_torch.train\n"
             "import ray_tpu_torch.ops.ring_attention\n"
+            "import ray_tpu_torch.collective.xla_group\n"
+            "import ray_tpu_torch.collective.quantization\n"
+            "import ray_tpu_torch.train.pipeline, ray_tpu_torch.rl\n"
+            "from ray_tpu_torch.rl import learner, learner_group, "
+            "env_runner, module, envs, connectors, algorithm\n"
             "from ray_tpu_torch.util import ActorPool, Queue, state, "
             "profiling\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

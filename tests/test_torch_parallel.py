@@ -21,6 +21,12 @@ port's weights are the JAX init's, converted.
   outputs to atol 2e-5 (tests/test_ops.py:46) and gradients of sum(out²)
   to 5e-4 (tests/test_ops.py:62);
 - the ``sp_axis`` ``debug`` loss against JAX's on the same mesh, 2e-5;
+- the MoE's expert axis on ``moe.CONFIGS["debug"]`` (4 experts): each
+  rank's local shard shapes equal to JAX's ``addressable_shards`` under
+  FSDP_RULES at fsdp=4 (one expert a rank), the sharded loss and router
+  metrics (fsdp=4 under FSDP_RULES, fsdp=2 x tp=2 under FSDP_TP_RULES)
+  to 2e-5, 3 sharded train steps at fsdp=4 to the Llama steps'
+  tolerances, and the ``sp_axis`` loss at sp=4 to 2e-5;
 - then the port alone: a sharded tree through ``train.Checkpoint`` (DCP,
   a file a rank) restores bit for bit on the mesh.
 """
@@ -288,6 +294,126 @@ def test_sp_axis_loss_matches_jax(pool, debug_params):
     for r in got:
         np.testing.assert_allclose(r["loss"], float(jloss), rtol=LOSS_TOL,
                                    atol=LOSS_TOL)
+
+
+# ------------------------------------------------- the MoE's expert axis
+
+MOE_METRICS = ("aux_loss", "router_z", "dropped_frac", "ce")
+
+
+@pytest.fixture(scope="module")
+def moe_run():
+    """JAX's side of the expert-axis tests, computed once: the debug MoE's
+    train state on a fsdp=4 mesh under FSDP_RULES (the weights placed by
+    the rule table), its initial parameters, the metrics of 3 train steps
+    (the first step's are the loss at the initial parameters) and the
+    parameters after them."""
+    cfg = jmoe.CONFIGS["debug"]
+    tokens = _tokens(seed=6)
+    rules = jsharding.FSDP_RULES
+    mesh = _jmesh(jax.devices()[:4], fsdp=4)
+    opt = jtraining.OptimizerConfig(**OPT).make()
+    with jsharding.set_mesh(mesh):
+        state, _ = jtraining.init_train_state(
+            lambda key: jmoe.init_params(cfg, key),
+            jmoe.param_logical_axes(cfg), opt, mesh, rules,
+            jax.random.key(0))
+        # each device's shard shapes, before the steps donate the state
+        shards = {name: {sh.device: tuple(sh.data.shape)
+                         for sh in state.params["layers"][name]
+                         .addressable_shards}
+                  for name in ("we_gate", "we_up", "we_down", "router")}
+        start = _np_tree(state.params)
+        step = jtraining.make_train_step(
+            lambda p, b: jmoe.loss_fn(p, b, cfg, rules, mesh=mesh), opt,
+            mesh, rules)
+        jmetrics = []
+        for _ in range(STEPS):
+            state, m = step(state, {"tokens": jnp.asarray(tokens)})
+            jmetrics.append({k: float(v) for k, v in m.items()})
+    return {"cfg": cfg, "tokens": tokens, "mesh": mesh, "shards": shards,
+            "start": start, "metrics": jmetrics,
+            "final": _np_tree(state.params)}
+
+
+def test_moe_local_shard_shapes_match_jax(pool, moe_run):
+    cfg = moe_run["cfg"]
+    axes = jmoe.param_logical_axes(cfg)
+    got = pool.run("mesh_and_shards", {"fsdp": 4}, "FSDP_RULES",
+                   moe_run["start"], axes)
+    devices = moe_run["mesh"].devices
+    for r in got:
+        coord = tuple(r["coordinate"])
+        for name, by_device in moe_run["shards"].items():
+            assert r["local_shapes"]["layers"][name] == \
+                by_device[devices[coord]], (name, coord)
+    # the experts really are split, one a rank
+    assert got[0]["local_shapes"]["layers"]["we_gate"][1] == \
+        cfg.n_experts // 4
+
+
+@pytest.mark.parametrize("config_kw, rules", [
+    ({"fsdp": 4}, "FSDP_RULES"),
+    ({"fsdp": 2, "tp": 2}, "FSDP_TP_RULES")])
+def test_moe_sharded_loss_matches_jax(pool, moe_run, config_kw, rules):
+    """The loss at the initial weights: JAX's first train step's."""
+    want = moe_run["metrics"][0]
+    got = pool.run("sharded_loss", config_kw, rules, moe_run["start"],
+                   moe_run["tokens"], None, "moe")
+    for r in got:
+        for k in ("loss",) + MOE_METRICS:
+            np.testing.assert_allclose(r[k], want[k], rtol=LOSS_TOL,
+                                       atol=LOSS_TOL, err_msg=k)
+        assert r["tokens"] == want["tokens"]
+
+
+def test_moe_sharded_train_steps_match_jax(pool, moe_run):
+    got = pool.run("sharded_train", {"fsdp": 4}, "FSDP_RULES",
+                   moe_run["start"], moe_run["tokens"], OPT, STEPS, "moe")
+    for r in got:
+        for i, (t, j) in enumerate(zip(r["metrics"], moe_run["metrics"])):
+            for k in ("loss", "grad_norm", "aux_loss"):
+                assert t[k] == pytest.approx(j[k], rel=1e-5), (i, k)
+        g, w, p0 = (_flat(r["params"]), _flat(moe_run["final"]),
+                    _flat(moe_run["start"]))
+        np.testing.assert_allclose(g, w, atol=5e-5)
+        moved = np.linalg.norm(w - p0)
+        assert moved > 0
+        assert np.linalg.norm(g - w) <= 1e-4 * moved
+
+
+def test_moe_sp_axis_loss_matches_jax(pool, moe_run):
+    cfg, jp = moe_run["cfg"], moe_run["start"]
+    tokens = _tokens(seed=7)
+    jcfg = dataclasses.replace(cfg, base=dataclasses.replace(
+        cfg.base, sp_axis="sp"))
+    rules = jsharding.FSDP_RULES
+    mesh = _jmesh(jax.devices()[:4], fsdp=1, sp=4)
+    with jsharding.set_mesh(mesh):
+        sharded = jsharding.shard_pytree(
+            jp, jmoe.param_logical_axes(cfg), mesh, rules)
+        jloss, jaux = jax.jit(lambda p, b: jmoe.loss_fn(
+            p, b, jcfg, rules, mesh=mesh))(
+                sharded, {"tokens": jnp.asarray(tokens)})
+    got = pool.run("sharded_loss", {"fsdp": 1, "sp": 4}, "FSDP_RULES",
+                   jp, tokens, "sp", "moe")
+    for r in got:
+        np.testing.assert_allclose(r["loss"], float(jloss), rtol=LOSS_TOL,
+                                   atol=LOSS_TOL)
+        np.testing.assert_allclose(r["aux_loss"], float(jaux["aux_loss"]),
+                                   rtol=LOSS_TOL, atol=LOSS_TOL)
+
+
+def test_moe_sp_axis_refuses_without_a_mesh():
+    import torch
+
+    cfg = tmoe.CONFIGS["debug"]
+    cfg = dataclasses.replace(cfg, base=dataclasses.replace(
+        cfg.base, sp_axis="sp"))
+    params = tmoe.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="needs a mesh"):
+        tmoe.loss_fn(params, {"tokens": torch.zeros(2, 8, dtype=torch.long)},
+                     cfg)
 
 
 def test_sharded_checkpoint_restores_bit_equal(pool, debug_params, tmp_path):

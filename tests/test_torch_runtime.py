@@ -356,21 +356,55 @@ def _cluster_runs():
 
 
 def _nccl_group():
+    """The in-program backend is ported: a "nccl" group over two CPU slabs
+    (the same reductions as tensor ops; NCCL itself runs on the card, in
+    chip_smoke.py) allreduces (its scenario runs in
+    tests/test_torch_collective.py)."""
+    import torch
+
     from ray_tpu_torch import collective
 
-    collective.init_collective_group(2, 0, backend="nccl")
+    collective.init_collective_group(2, 0, backend="nccl", group_name="x",
+                                     devices=[torch.device("cpu")] * 2)
+    try:
+        group = collective.get_group_handle("x")
+        assert group.backend_name == "xla"
+        out = collective.allreduce(torch.ones(2, 3), group_name="x")
+        assert torch.equal(out, torch.full((3,), 2.0))
+    finally:
+        collective.destroy_collective_group("x")
 
 
 def _quantized_group():
+    """The KV group's quantized wire is ported: float payloads travel as
+    block-int8 codes."""
+    from _torch_dist import MemoryKV
+
     from ray_tpu_torch.collective.kv_group import KVGroup
 
-    KVGroup(None, 2, 0, "g", quantized=True)
+    g = KVGroup(MemoryKV(), 1, 0, "g", quantized=True)
+    x = np.linspace(-1, 1, 8192, dtype=np.float32)
+    out = g.allreduce(x)
+    assert np.abs(out - x).max() <= 2 / 255 / 2 + 1e-6
+    assert g.wire_put_bytes < x.nbytes / 3
 
 
 def _train_pipeline():
-    from ray_tpu_torch.train import JaxTrainer
+    """Train's pipeline mode is ported: ``pipeline_spec=`` takes the place
+    of the train loop (its scenario runs in
+    tests/test_torch_train_pipeline.py)."""
+    from ray_tpu_torch.train import JaxTrainer, PipelineSpec, StageSpec
 
-    JaxTrainer(pipeline_spec=object())
+    spec = PipelineSpec(stages=[StageSpec(lambda g: {}, lambda p, x: x)],
+                        loss=lambda y, t: (y - t).square().mean(),
+                        device="cpu")
+    assert JaxTrainer(pipeline_spec=spec).pipeline_spec is spec
+
+
+def _rl_imports():
+    """RL's PPO path is ported (tests/test_torch_rl.py)."""
+    assert ray_tpu_torch.rl.PPOConfig is not None
+    assert ray_tpu_torch.rl.FaultTolerantActorManager is not None
 
 
 def _parallel_imports():
@@ -402,10 +436,14 @@ _WAITING_CASES = {
         system_config={"autoscaling_enabled": True}), "the autoscaler"),
     "graph": (_graph_builds, None),
     "cluster_utils": (_cluster_runs, None),
-    "collective": (_nccl_group, "item 12b, the NCCL backend"),
-    "collective_quantized": (_quantized_group,
-                             "item 12b, quantized collectives"),
-    "train_pipeline": (_train_pipeline, "item 12b, Train's pipeline mode"),
+    "collective": (_nccl_group, None),
+    "collective_quantized": (_quantized_group, None),
+    "train_pipeline": (_train_pipeline, None),
+    "rl": (_rl_imports, None),
+    "rl_later": (lambda: ray_tpu_torch.rl.DQN,
+                 "item 14, part 2, RL beyond PPO"),
+    "rl_anakin": (lambda: ray_tpu_torch.rl.PPO.scale_out(None, None),
+                  "item 14, part 2, RL's Podracer"),
     "parallel": (_parallel_imports, None),
     "train": (_train_imports, None),
     "cluster_control_plane": (_cluster_control_plane, "control-plane"),
@@ -414,7 +452,7 @@ _WAITING_CASES = {
     **{name: (lambda name=name: getattr(ray_tpu_torch, name), item)
        for name, item in (
            ("job", "item 11, jobs"), ("data", "item 11, Data"),
-           ("tune", "item 11, Tune"), ("rl", "item 14, RL"))},
+           ("tune", "item 11, Tune"))},
 }
 
 

@@ -20,8 +20,9 @@ worker sees its grant as ``CUDA_VISIBLE_DEVICES``; ``init(num_gpus=1)``
 on the CPU is a plain node count), ``ZeroShardedOptimizer`` over the
 port's KV group (its ranks on threads over an in-memory KV) equals
 ``ray_tpu``'s ``FlatOptimizer`` on the full vector bit for bit, as does
-the port's own ``FlatOptimizer``, and ``datasets=`` and
-``pipeline_spec=`` refuse with their ROADMAP items.
+the port's own ``FlatOptimizer``, and ``datasets=``
+refuses with its ROADMAP item (``pipeline_spec=`` runs in
+tests/test_torch_train_pipeline.py).
 
 Only ``ray_tpu``'s side runs a part once more, on a fresh cluster, when
 it fails: tests/conftest.py's module guard ends every JAX-package test
@@ -386,13 +387,19 @@ def test_gpu_lease_without_cuda_refuses(monkeypatch):
 
 
 def test_datasets_and_pipeline_spec_refuse():
+    """``datasets=`` refuses with its ROADMAP item; ``pipeline_spec=`` is
+    ported (tests/test_torch_train_pipeline.py runs it) and, as in
+    ``ray_tpu``, takes the place of the gang's train loop: exactly one of
+    the two."""
     from ray_tpu_torch import train as t
 
     with pytest.raises(NotImplementedError, match="item 11, Data"):
         t.JaxTrainer(lambda: None, datasets={"train": object()})
-    with pytest.raises(NotImplementedError, match="item 12b, Train's "
-                                                  "pipeline mode"):
-        t.JaxTrainer(pipeline_spec=object())
+    with pytest.raises(ValueError, match="exactly one"):
+        t.JaxTrainer()
+    with pytest.raises(ValueError, match="exactly one"):
+        t.JaxTrainer(lambda: None, pipeline_spec=object())
+    assert t.JaxTrainer(pipeline_spec=object()).pipeline_spec is not None
     with pytest.raises(NotImplementedError, match="item 11, Data"):
         t.get_dataset_shard("train")
 
