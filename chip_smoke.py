@@ -209,7 +209,23 @@ Phases (any failure exits non-zero, and no result line is printed):
      one num_gpus=1 learner actor sees its lease, its weights after one
      update equal (a)'s card learner's (bit equality reported); GPU 1
      after the group stops, no process of the session after shutdown();
-  16. the kernels line, then the result line.
+  16. RL beyond PPO: (a) DQN, BC, MARWIL, SAC, CQL, IMPALA, APPO and
+     DreamerV3 at their configs' default widths on the card against the
+     same learner on the CPU, from the same weights, runner-made batch
+     and draws: metrics and weights within 1e-5 (DreamerV3: metrics 1e-4
+     relative or 1e-5, weights 5e-5), update ms and launches; (b)
+     Anakin's (4, 8) step card vs CPU within 1e-5, then train(30) at 4096
+     envs and PPOConfig's fragment length with no host sync inside (the
+     sync debug mode "error"), env steps/s, updates/s, launches an
+     update, the folded weights' greedy return > ANAKIN_MIN_RETURN; under
+     a fresh init(): (c) Sebulba with two CPU runners and a num_gpus=1
+     learner actor, lock-step for 3 updates within 1e-5 of the card's
+     sync PPO loop, then about 10 s free-running (fragments/s, policy
+     lag, updates/s), GPU 1 after each stop(); (d) IMPALA at
+     tests/test_rl.py::TestIMPALA's settings with the learner on the
+     card: best return 120 within 240 s, num_updates; no process of the
+     session after shutdown();
+  17. the kernels line, then the result line.
 
 Needs one CUDA card, nvcc, about 70 GB of device memory, about 9 GB of
 /dev/shm (phase 11's object store and channels; phase 13's channels take
@@ -219,6 +235,7 @@ host steps: each stage's flat f32 parameters and gradients, about 3 GB
 each, and their copies); no network.
 """
 
+import faulthandler
 import json
 import os
 import re
@@ -234,10 +251,15 @@ PEAK_OPS = {"float32": 67e12,    # f32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 TIMED_ITERS = 20
 INPUT_COPIES = 4                 # rotate inputs so K/V come from HBM, not L2
+# the longest gap between two log lines in a passing run is phase 12's fit,
+# under 160 s: a gap of STALL_DUMP_S prints every thread's stack to stderr,
+# so a run that hangs names where it stopped
+STALL_DUMP_S = 300
 
 
 def log(*args):
     print(*args, flush=True)
+    faulthandler.dump_traceback_later(STALL_DUMP_S, exit=False)
 
 
 def time_ms(fns, iters=TIMED_ITERS, graph=False):
@@ -3799,6 +3821,538 @@ def rl_check(device, smi=""):
     return out
 
 
+# ------------------------------------------------------------- phase 16
+# RL beyond PPO: every new learner on the card against the CPU, Anakin's
+# in-device loop, Sebulba with a GPU learner actor, IMPALA learning.
+
+# (rtol, atol) of metrics and of weights: tests/test_torch_rl_algos.py's
+# (biases start at 0, and a loss of normalized advantages sits near 0)
+RL_ALGO_TOL = ((1e-5, 1e-6), (1e-5, 1e-6))
+RL_DREAMER_TOL = ((1e-4, 1e-5), (1e-4, 5e-5))   # measured on the CPU
+ANAKIN_SMALL = (4, 8)           # tests/test_podracer.py::TestAnakin's
+ANAKIN_ENVS = 4096
+ANAKIN_UPDATES = 30
+# the greedy return the folded weights must exceed, set before the first
+# chip run: half the 301.2 that the same settings gave on the CPU (5
+# greedy episodes; the card's generator draws another stream)
+ANAKIN_MIN_RETURN = 150.0
+SEBULBA_FREE_S = 10.0
+IMPALA_TARGET, IMPALA_DEADLINE_S = 120.0, 240.0   # tests/test_rl.py:147
+
+
+def _device_profile(fn):
+    """(launches, device ms) of one ``fn()`` as ``torch.profiler`` records
+    them: kernels and copies, and the sum of their device times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches, dev_us = 0, 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            launches += e.count
+            dev_us += us
+    return launches, dev_us / 1e3
+
+
+def _synced_ms(fn, n=3):
+    """Mean ms of ``n`` calls of ``fn()``, each ended by a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return sum(times) / len(times)
+
+
+def _metrics_rel(got, want):
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+               for k in want)
+
+
+def _tol_ratio(got, want, rtol, atol):
+    """max over keys and elements of |got - want| / (atol + rtol |want|):
+    at most 1 where numpy's allclose(rtol, atol) holds."""
+    import numpy as np
+
+    return max(float((np.abs(np.asarray(got[k], np.float64)
+                             - np.asarray(want[k], np.float64))
+                      / (atol + rtol * np.abs(np.asarray(want[k],
+                                                         np.float64))))
+                     .max()) for k in want)
+
+
+def _abs_err(got, want):
+    import numpy as np
+
+    return max(float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max())
+               for k in want)
+
+
+def _runner_fragments(env, weights, n, steps, seed=16, next_obs=False):
+    """``n`` local EnvRunners' fragments of ``steps`` under ``weights``."""
+    from ray_tpu_torch.rl.env_runner import EnvRunner
+
+    out = []
+    for i in range(n):
+        r = EnvRunner(env, seed=seed, worker_index=i,
+                      record_next_obs=next_obs)
+        r.set_weights(weights, 0)
+        out.append(r.sample(steps))
+    return out
+
+
+def _learner_cases(tmp):
+    """(name, build(device) -> learner, update(learner, draws) -> metrics,
+    weights(learner), draws(learner) or None, tolerances) of every new
+    learner at its
+    config's default width, on batches made here: CartPole runner
+    fragments (replayed for DQN, aggregated for IMPALA and APPO, written
+    as JSON for BC and MARWIL, windowed with the acting latents for
+    DreamerV3), Pendulum's for SAC and CQL."""
+    import numpy as np
+
+    from ray_tpu_torch.rl import (BCConfig, CQLConfig, DQNConfig,
+                                  DreamerV3Config, IMPALAConfig,
+                                  MARWILConfig, SACConfig)
+    from ray_tpu_torch.rl.appo import APPOConfig, APPOLearner
+    from ray_tpu_torch.rl.cql import CQLLearner
+    from ray_tpu_torch.rl.dqn import DQNLearner
+    from ray_tpu_torch.rl.dreamerv3 import DreamerV3Learner
+    from ray_tpu_torch.rl.impala import Aggregator, IMPALALearner
+    from ray_tpu_torch.rl.marwil import MARWIL
+    from ray_tpu_torch.rl.module import init_policy_params
+    from ray_tpu_torch.rl.offline import BC, collect, torch_to_np
+    from ray_tpu_torch.rl.replay import (ReplayBuffer, SequenceReplay,
+                                         transitions_from_fragment)
+    from ray_tpu_torch.rl.sac import SACLearner
+
+    params = init_policy_params(4, 2, hidden=(64, 64), seed=16)
+    dev = lambda d: None if d.type == "cuda" else "cpu"  # noqa: E731
+    cases = []
+
+    # DQN: 64 transitions replayed from two runners' 256 steps each
+    rb = ReplayBuffer(DQNConfig.replay_capacity, seed=16)
+    for f in _runner_fragments("CartPole-v1", params, 2, 256, next_obs=True):
+        rb.add_fragment(transitions_from_fragment(f))
+    dqn_batch = rb.sample(DQNConfig.train_batch_size)
+    tol = RL_ALGO_TOL
+    cases.append(("dqn", lambda d: DQNLearner(
+        params, lr=DQNConfig.lr, gamma=DQNConfig.gamma,
+        target_update_freq=DQNConfig.target_update_freq, device=dev(d)),
+        lambda lr, dr: lr.update(dqn_batch), lambda lr: lr.get_weights(),
+        None, tol))
+
+    # BC and MARWIL: 2048 steps written by collect(), one epoch of 256s
+    path = os.path.join(tmp, "offline")
+    collect("CartPole-v1", params, path, num_steps=2048, seed=16)
+    for name, cfg_cls, cls in (("bc", BCConfig, BC),
+                               ("marwil", MARWILConfig, MARWIL)):
+        cases.append((name, lambda d, c=cfg_cls, k=cls: k(c(
+            input_path=path, learner_device=dev(d))),
+            lambda lr, dr: lr.train(),
+            lambda lr: torch_to_np(lr.params), None, tol))
+
+    # SAC and CQL: 256 Pendulum transitions, the CPU learner's draws
+    sac_w = SACLearner(3, 1, device="cpu", action_scale=2.0).get_weights()
+    rb = ReplayBuffer(SACConfig.replay_capacity, seed=16)
+    for f in _runner_fragments("Pendulum-v1", sac_w, 2, 256, next_obs=True):
+        rb.add_fragment(transitions_from_fragment(f))
+    sac_batch = rb.sample(SACConfig.train_batch_size)
+    for name, cls, extra in (
+            ("sac", SACLearner, {}),
+            ("cql", CQLLearner, dict(cql_alpha=CQLConfig.cql_alpha,
+                                     cql_n_actions=CQLConfig.cql_n_actions))):
+        def build(d, cls=cls, extra=extra):
+            return cls(3, 1, hidden=SACConfig.hidden, action_scale=2.0,
+                       device=dev(d), **extra)
+
+
+        def weights(lr):
+            s = lr.get_state()
+            return {f"{p}/{k}": v for p in ("actor", "q1", "q2", "q1_target",
+                                            "q2_target")
+                    for k, v in s[p].items()}
+
+        cases.append((name, build,
+                      lambda lr, dr: lr.update(sac_batch, dr), weights,
+                      lambda lr: lr.draws(len(sac_batch["obs"])), tol))
+
+    # IMPALA and APPO: 4 fragments of 128 aggregated to 512
+    agg = Aggregator(IMPALAConfig.train_batch_size)
+    agg.add_fragment(_runner_fragments("CartPole-v1", params, 4, 128))
+    imp_batch = agg.get_ready_batch()
+    for name, cls, kw in (
+            ("impala", IMPALALearner, IMPALAConfig().learner_kwargs()),
+            ("appo", APPOLearner, APPOConfig().learner_kwargs())):
+        kw = {k: v for k, v in kw.items() if k != "device"}
+        cases.append((name, lambda d, cls=cls, kw=kw: cls(
+            params, device=dev(d), **kw),
+            lambda lr, dr: lr.update(imp_batch),
+            lambda lr: lr.get_weights(), None, tol))
+
+    # DreamerV3: (16, 16) windows of runner fragments acted on the RSSM
+    # tower, with their recorded latents; the CPU learner's draws
+    dcfg = DreamerV3Config(seed=16)
+    probe = DreamerV3Learner(4, 2, dcfg, device="cpu")
+    seq = SequenceReplay(dcfg.replay_capacity, dcfg.seq_len, seed=16)
+    for f in _runner_fragments("CartPole-v1", probe.get_runner_weights(),
+                               2, 256):
+        seq.add_fragment(f)
+    d_batch = seq.sample(dcfg.batch_size)
+
+    cases.append(("dreamerv3", lambda d: DreamerV3Learner(
+        4, 2, dcfg, device=dev(d)), lambda lr, dr: lr.update(d_batch, dr),
+        lambda lr: lr.get_weights(),
+        lambda lr: lr.draws(dcfg.batch_size, dcfg.seq_len),
+        RL_DREAMER_TOL))
+    return cases
+
+
+def rl_learners_check(device):
+    """Phase 16 (a): each new learner on ``device`` against the same
+    learner on the CPU, from the same weights, batch and draws (made by
+    the CPU learner, passed to both): one update, metrics and weights
+    allclose within RL_ALGO_TOL (DreamerV3: RL_DREAMER_TOL), the ratios
+    to it reported; then the card's own
+    update (its draws from its generator): ms (mean of 3, synchronized),
+    launches (kernels and copies) and their device ms a call."""
+    import tempfile
+
+    import torch
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, build, update, weights, draws, tol in _learner_cases(tmp):
+            on_dev, on_cpu = build(device), build(torch.device("cpu"))
+            dr = None if draws is None else draws(on_cpu)
+            m_cpu, m_dev = update(on_cpu, dr), update(on_dev, dr)
+            w_dev, w_cpu = weights(on_dev), weights(on_cpu)
+            rec = {"metrics_tol_ratio": _tol_ratio(m_dev, m_cpu, *tol[0]),
+                   "weights_tol_ratio": _tol_ratio(w_dev, w_cpu, *tol[1]),
+                   "metrics_rel_err": _metrics_rel(m_dev, m_cpu),
+                   "metrics_abs_err": max(abs(m_dev[k] - m_cpu[k])
+                                          for k in m_cpu),
+                   "weights_rel_err": _rel_close(w_dev, w_cpu, 0),
+                   "weights_abs_err": _abs_err(w_dev, w_cpu)}
+            assert rec["metrics_tol_ratio"] <= 1.0, (name, rec)
+            assert rec["weights_tol_ratio"] <= 1.0, (name, rec)
+            if device.type == "cuda":
+                # the card's own update: its draws from its generator
+                def step(lr=on_dev, update=update, draws=draws):
+                    return update(lr, None if draws is None else draws(lr))
+
+                rec["update_ms"] = _synced_ms(step)
+                rec["launches"], rec["device_ms"] = _device_profile(step)
+            out[name] = rec
+            log(f"[16] (a) {name} card vs CPU: " + json.dumps(rec))
+    return out
+
+
+def _greedy_return(weights, episodes=5, seed=100):
+    """Mean return of the argmax policy of ``weights`` on the numpy
+    CartPole env."""
+    import numpy as np
+
+    from ray_tpu_torch.rl.envs import CartPoleEnv
+    from ray_tpu_torch.rl.module import np_forward
+
+    env, returns = CartPoleEnv(seed=seed), []
+    for ep in range(episodes):
+        obs, _ = env.reset(seed=seed + ep)
+        total, done = 0.0, False
+        while not done:
+            logits, _ = np_forward(weights, np.asarray(obs)[None])
+            obs, r, term, trunc, _ = env.step(int(logits[0].argmax()))
+            total += r
+            done = term or trunc
+        returns.append(total)
+    return float(np.mean(returns))
+
+
+def anakin_small_check(device):
+    """Phase 16 (b), first part: one Anakin step at ANAKIN_SMALL on
+    ``device`` against the CPU, from the same weights, reset uniforms and
+    draws (made on the CPU): params, Adam's moments and metrics allclose
+    within RL_ALGO_TOL, env state within RL_LEARNER_RTOL."""
+    import torch
+
+    from ray_tpu_torch.rl import PPOConfig
+    from ray_tpu_torch.rl.envs import TorchCartPole
+    from ray_tpu_torch.rl.learner import _tensors
+    from ray_tpu_torch.rl.module import init_policy_params, torch_gumbel
+    from ray_tpu_torch.rl.podracer import _build_anakin_step
+
+    B, T = ANAKIN_SMALL
+    c = PPOConfig()
+    hyper = {"gamma": c.gamma, "lam": c.lam, "clip": c.clip,
+             "vf_coeff": c.vf_coeff, "entropy_coeff": c.entropy_coeff,
+             "num_epochs": 2, "lr": c.lr}
+    step, opt = _build_anakin_step(TorchCartPole, T, hyper)
+    params = init_policy_params(4, 2, hidden=c.hidden, seed=0)
+    g = torch.Generator().manual_seed(0)
+    u0 = torch.rand((B, 4), generator=g) * 0.1 - 0.05
+    draws = {"act": torch_gumbel((T, B, 2), g, "cpu"),
+             "env": torch.rand((T, B, 4), generator=g) * 0.1 - 0.05}
+    outs = {}
+    for d in (device, torch.device("cpu")):
+        p = _tensors(params, d)
+        env, obs = TorchCartPole.reset(u0.to(d), B)
+        outs[d.type] = step(p, opt.init(p), env, obs,
+                            {k: v.to(d) for k, v in draws.items()})
+    got, want = outs[device.type], outs["cpu"]
+    host = lambda t: {k: v.detach().cpu().numpy()  # noqa: E731
+                      for k, v in t.items()}
+    tol = RL_ALGO_TOL[1]
+    m_got = {k: float(v) for k, v in got[4].items()}
+    m_want = {k: float(v) for k, v in want[4].items()}
+    rec = {"params_tol_ratio": _tol_ratio(host(got[0]), host(want[0]), *tol),
+           "mu_tol_ratio": _tol_ratio(host(got[1]["mu"]),
+                                      host(want[1]["mu"]), *tol),
+           "metrics_tol_ratio": _tol_ratio(m_got, m_want, *tol),
+           "params_rel_err": _rel_close(host(got[0]), host(want[0]), 0),
+           "env_abs_err": float((got[2]["s"].cpu() - want[2]["s"])
+                                .abs().max()),
+           "metrics_rel_err": _metrics_rel(m_got, m_want)}
+    log("[16] (b) Anakin (4, 8) card vs CPU: " + json.dumps(rec))
+    assert max(rec["params_tol_ratio"], rec["mu_tol_ratio"],
+               rec["metrics_tol_ratio"]) <= 1.0, rec
+    assert rec["env_abs_err"] <= RL_LEARNER_RTOL, rec
+    return rec
+
+
+class _SyncChecked:
+    """``fn`` run under ``torch.cuda.set_sync_debug_mode("error")``: any
+    host sync inside raises."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            self.calls += 1
+            return self.fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def anakin_check(device, num_updates=ANAKIN_UPDATES, batch_envs=ANAKIN_ENVS):
+    """Phase 16 (b), second part (under init(): the algorithm's one env
+    runner stays idle): Anakin at ``batch_envs`` envs and PPOConfig's
+    rollout_fragment_length, ``train(num_updates)`` on ``device`` with
+    every device call of the loop (the draws and the step) under the
+    sync debug mode "error", so a host sync inside train() raises; env
+    steps/s, updates/s, launches and device ms an update (one more step,
+    profiled) and the device's busy share,
+    and the greedy return of the folded weights on the numpy CartPole
+    env, which must exceed ANAKIN_MIN_RETURN."""
+    from ray_tpu_torch.rl import PodracerConfig, PPOConfig
+
+    dev_name = None if device.type == "cuda" else "cpu"
+    algo = (PPOConfig(seed=0, learner_device=dev_name)
+            .environment("CartPole-v1").env_runners(1).build())
+    try:
+        an = algo.scale_out(PodracerConfig(mode="anakin",
+                                           batch_envs=batch_envs))
+        if device.type == "cuda":
+            an._step, an.draws = _SyncChecked(an._step), _SyncChecked(
+                an.draws)
+        res = an.train(num_updates)
+        rec = {"batch_envs": batch_envs, "unroll": an._T,
+               "updates": num_updates, "env_steps": res["env_steps"],
+               "env_steps_per_s": res["env_steps_per_s"],
+               "updates_per_s": res["learner_steps_per_s"],
+               "metrics": res["metrics"], "device": str(an.device),
+               "sync_checked_calls": getattr(an._step, "calls", 0)}
+        if device.type == "cuda":
+            step, draws = an._step.fn, an.draws.fn
+            rec["launches_per_update"], rec["device_ms_per_update"] = \
+                _device_profile(lambda: step(*an._carry, draws()))
+            rec["device_busy_share"] = (rec["device_ms_per_update"]
+                                        * rec["updates_per_s"] / 1e3)
+        rec["greedy_return"] = _greedy_return(algo.get_weights())
+    finally:
+        algo.stop()
+    log("[16] (b) Anakin at scale: " + json.dumps(rec))
+    assert rec["greedy_return"] > ANAKIN_MIN_RETURN, rec
+    return rec
+
+
+def sebulba_check(rt, device):
+    """Phase 16 (c): Sebulba with two CPU runners (two envs each) and the
+    learner actor on ``device`` (``num_gpus=1`` on the card): lock-step
+    for 3 updates, its weights within RL_LEARNER_RTOL of the synchronous
+    PPO loop with its learner on ``device`` in this process; then
+    free-running for SEBULBA_FREE_S: fragments/s, policy lag, updates/s;
+    the GPU back after each stop()."""
+    from ray_tpu_torch.rl import PodracerConfig, PPOConfig
+
+    dev_name = None if device.type == "cuda" else "cpu"
+
+    def build():
+        return (PPOConfig(seed=1, learner_device=dev_name,
+                          rollout_fragment_length=64, minibatch_size=128,
+                          num_epochs=2)
+                .environment("CartPole-v1").env_runners(2, 2).build())
+
+    out = {}
+    algo = build()
+    try:
+        h = algo.scale_out(PodracerConfig(mode="sebulba", num_runners=2,
+                                          sync_weights=True))
+        try:
+            recs = h.wait_updates(3, timeout_s=180)
+            out["gpu_during"] = rt.available_resources().get("GPU", 0.0)
+        except BaseException:
+            h.shutdown()
+            raise
+        s = h.stop(timeout_s=120)
+        if device.type == "cuda":
+            out["gpu_after_stop"] = _available_gpu(rt, 1.0)
+        learner = s["learner"]
+        produced = sum(r["fragments_produced"] for r in s["runners"].values())
+        drops = sum(r["push_drops"] for r in s["runners"].values())
+        out["lock_step"] = {
+            "learner_device": h.learner_device, "version": learner["version"],
+            "policy_lag": [r["policy_lag"] for r in recs],
+            "produced": produced, "push_drops": drops,
+            "consumed": learner["consumed"],
+            "undelivered": s["queue"]["undelivered"]}
+        oracle = build()
+        try:
+            for _ in range(learner["version"]):
+                oracle.train()
+            out["lock_step"]["weights_rel_err"] = _rel_close(
+                algo.get_weights(), oracle.get_weights(), 0)
+        finally:
+            oracle.stop()
+        log("[16] (c) Sebulba lock-step: " + json.dumps(out["lock_step"]))
+        assert out["lock_step"]["weights_rel_err"] <= RL_LEARNER_RTOL, out
+        assert produced - drops == learner["consumed"], out
+        assert all(lag == 0 for lag in out["lock_step"]["policy_lag"]), out
+
+        h = algo.scale_out(PodracerConfig(mode="sebulba", num_runners=2))
+        try:
+            recs = h.wait_updates(1, timeout_s=180)
+            t0, first = time.perf_counter(), recs[-1]
+            while time.perf_counter() - t0 < SEBULBA_FREE_S:
+                recs += h.wait_updates(1, timeout_s=60)
+            dt = time.perf_counter() - t0
+        except BaseException:
+            h.shutdown()
+            raise
+        last = recs[-1]
+        s = h.stop(timeout_s=120)
+        lags = [r["policy_lag"] for r in recs[1:]]
+        out["free"] = {
+            "seconds": dt, "updates": last["update"] - first["update"],
+            "updates_per_s": (last["update"] - first["update"]) / dt,
+            "fragments_per_s": (last["consumed"] - first["consumed"]) / dt,
+            "env_steps_per_s": (last["env_steps"] - first["env_steps"]) / dt,
+            "policy_lag_mean": sum(lags) / max(len(lags), 1),
+            "policy_lag_max": max(lags, default=0),
+            "queue_depth_last": last["queue_depth"],
+            "learner_updates": s["learner"]["updates"],
+            "broadcast_skips": s["learner"]["broadcast_skips"],
+            "lag_dropped": s["learner"]["lag_dropped"]}
+        if device.type == "cuda":
+            out["gpu_after_free_stop"] = _available_gpu(rt, 1.0)
+        log("[16] (c) Sebulba free-running: " + json.dumps(out["free"]))
+    finally:
+        algo.stop()
+    if device.type == "cuda":
+        assert out["lock_step"]["learner_device"] == "cuda", out
+        assert out["gpu_during"] == 0.0, out
+        assert out["gpu_after_stop"] == 1.0, out
+        assert out["gpu_after_free_stop"] == 1.0, out
+    assert out["free"]["updates"] > 0, out
+    return out
+
+
+def impala_check(device):
+    """Phase 16 (d): IMPALA at tests/test_rl.py::TestIMPALA's settings
+    with the learner on ``device``: the best return reaches IMPALA_TARGET
+    within IMPALA_DEADLINE_S; ``num_updates`` reported."""
+    from ray_tpu_torch.rl import IMPALAConfig
+
+    algo = IMPALAConfig(
+        seed=0, hidden=(32, 32), env="CartPole-v1", num_env_runners=2,
+        rollout_fragment_length=128, train_batch_size=512, lr=1e-3,
+        max_updates_per_step=6,
+        learner_device=None if device.type == "cuda" else "cpu").build()
+    best, returns, result = 0.0, [], {}
+    t0 = time.perf_counter()
+    try:
+        for _ in range(40):
+            result = algo.train()
+            er = result["env_runners"]["episode_return_mean"]
+            returns.append(er)
+            if er == er:
+                best = max(best, er)
+            if best >= IMPALA_TARGET or (time.perf_counter() - t0
+                                         > IMPALA_DEADLINE_S):
+                break
+    finally:
+        algo.stop()
+    learners = result["learners"]["default_policy"]
+    rec = {"best": best, "returns": returns, "iterations": len(returns),
+           "seconds": time.perf_counter() - t0,
+           "num_updates": learners["num_updates"],
+           "env_steps_trained": learners["num_env_steps_trained"],
+           "env_steps_sampled": result["env_runners"][
+               "num_env_steps_sampled"],
+           "learner_device": str(algo.learner.device)}
+    log("[16] (d) IMPALA, learner on the card: " + json.dumps(rec))
+    assert best >= IMPALA_TARGET, rec
+    assert learners["num_updates"] >= 5, rec
+    return rec
+
+
+def rl_algos_check(device, smi=""):
+    """Phase 16: (a) the new learners card vs CPU; (b) Anakin (4, 8) card
+    vs CPU, then at scale; (c) Sebulba with a GPU learner actor; (d)
+    IMPALA learning CartPole. (b)'s second part, (c) and (d) under one
+    fresh init(), with no process of the session left after shutdown()."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import api
+
+    out = {"nvidia_smi": smi}
+    t = time.perf_counter()
+    out["learners"] = rl_learners_check(device)
+    out["learners_s"] = time.perf_counter() - t
+    out["anakin_small"] = anakin_small_check(device)
+    rt.init()
+    session = api._head["session_dir"]
+    try:
+        t = time.perf_counter()
+        out["anakin"] = anakin_check(device)
+        out["anakin_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["sebulba"] = sebulba_check(rt, device)
+        out["sebulba_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["impala"] = impala_check(device)
+        out["impala_s"] = time.perf_counter() - t
+    finally:
+        rt.shutdown()
+    out["left_after_shutdown"] = _wait_session_gone(session)
+    assert out["left_after_shutdown"] == [], out["left_after_shutdown"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4080,7 +4634,15 @@ def main() -> int:
     report["rl_s"] = time.perf_counter() - t
     log(f"[15] {smi}: phase time {report['rl_s']:.1f} s")
 
-    # 16. the kernels line and the result line
+    # 16. RL beyond PPO: the new learners card vs CPU, Anakin, Sebulba
+    # with a GPU learner actor, IMPALA learning CartPole
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    report["rl_algos"] = rl_algos_check(device, smi=smi)
+    report["rl_algos_s"] = time.perf_counter() - t
+    log(f"[16] {smi}: phase time {report['rl_algos_s']:.1f} s")
+
+    # 17. the kernels line and the result line
     k = report["kernels"]
     lines = []
     for name, kind_, src_kernel, replaces in (
@@ -4188,6 +4750,7 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+    faulthandler.cancel_dump_traceback_later()
     return 0
 
 

@@ -77,6 +77,14 @@ FAULT_POINTS: Dict[str, str] = {
     "worker.task.push": (
         "NormalTaskSubmitter, before pushing a task to a leased worker "
         "— worker crashed between lease grant and task delivery"),
+    "rl.fragment.push": (
+        "Podracer Sebulba runner, after sealing a fragment batch and "
+        "before pushing its ref into the runner's fragment channel — "
+        "the handoff dies; the runner counts the drop and keeps acting"),
+    "rl.params.broadcast": (
+        "Podracer Sebulba learner, before writing a weights broadcast "
+        "to one runner's param channel — that runner misses the version "
+        "(policy lag grows) and catches up on the next broadcast"),
     "spill.write": (
         "ShmObjectStore spill engine, before writing a spill file — "
         "disk full / IO error on the spill path"),

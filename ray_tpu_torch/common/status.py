@@ -123,11 +123,6 @@ WAITING = {
     "cli": "queue A item 11, the CLI (python -m ray_tpu_torch start)",
     "data": "queue A item 11, Data",
     "tune": "queue A item 11, Tune",
-    "rl_later": "queue A item 14, part 2, RL beyond PPO (DQN, SAC, CQL, "
-                "MARWIL, IMPALA, APPO, DreamerV3, offline, multi-agent, "
-                "replay)",
-    "rl_anakin": "queue A item 14, part 2, RL's Podracer (Anakin in-graph "
-                 "envs and Sebulba scale-out, rl/podracer.py)",
 }
 
 

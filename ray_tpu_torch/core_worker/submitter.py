@@ -34,6 +34,9 @@ from ray_tpu_torch.rpc.rpc import (IoContext, RetryableRpcClient, RpcClient,
 
 logger = logging.getLogger(__name__)
 
+# seconds between an actor handle's warnings while its actor stays pending
+PENDING_WARN_S = 60.0
+
 
 class _JobFinishedByRaylet(WorkerCrashedError):
     """The raylet rejected a queued lease because this job was finished
@@ -936,7 +939,18 @@ class ActorTaskSubmitter:
     async def _resolve_address_inner(self):
         prev_addr = self._address
         loop = asyncio.get_running_loop()
-        deadline = loop.time() + 60.0
+        # An actor the GCS holds as PENDING_CREATION or RESTARTING is
+        # waited for as long as the GCS holds it so, as the reference's
+        # actor task submitter queues calls until the actor is ALIVE or
+        # DEAD: the GCS and the raylet bound the creation itself (start
+        # and push timeouts, worker registration), and a creation they
+        # fail ends as DEAD with its cause. The handle gives up on its own
+        # only when the GCS stays unreachable, and warns every
+        # PENDING_WARN_S while it waits.
+        started = loop.time()
+        gcs_window = GLOBAL_CONFIG.get("gcs_rpc_server_reconnect_timeout_s")
+        gcs_deadline = started + gcs_window
+        next_warn = started + PENDING_WARN_S
         # registrations are async for unnamed actors (worker.py
         # create_actor): "not found" within this window just means the
         # register RPC hasn't landed yet, not that the actor is gone.
@@ -948,7 +962,7 @@ class ActorTaskSubmitter:
         # jitter so a herd of resolvers doesn't hammer the recovering GCS
         gcs_backoff = RetryPolicy(base_s=0.2, cap_s=1.0)
         gcs_failures = 0
-        while loop.time() < deadline:
+        while True:
             # pubsub-pushed view first: the ALIVE event carries the full
             # public view, so the common churn path resolves without any
             # get_actor round trip (the poll below is the fallback for
@@ -960,8 +974,15 @@ class ActorTaskSubmitter:
                     info = await self._cw.gcs.call_async(
                         "get_actor", actor_id=self.actor_id.binary())
                     gcs_failures = 0
+                    gcs_deadline = loop.time() + gcs_window
                 except Exception:  # noqa: BLE001
                     gcs_failures += 1
+                    if loop.time() >= gcs_deadline:
+                        self._mark_dead(ActorDiedError(
+                            self.actor_id, "timed out resolving actor "
+                            f"address: the GCS was unreachable for "
+                            f"{gcs_window} s"))
+                        return
                     await gcs_backoff.asleep(gcs_failures)
                     continue
             if info is None:
@@ -1015,12 +1036,17 @@ class ActorTaskSubmitter:
                 return
             # actor still PENDING/RESTARTING: wake on the pubsub state
             # event (sub-ms after ALIVE) with a poll-interval fallback
+            if loop.time() >= next_warn:
+                next_warn = loop.time() + PENDING_WARN_S
+                logger.warning(
+                    "actor %s is still %s %.0f s after its first call; "
+                    "its calls wait for it", self.actor_id.hex()[:8], state,
+                    loop.time() - started)
             self._state_event.clear()
             try:
                 await asyncio.wait_for(self._state_event.wait(), 0.2)
             except asyncio.TimeoutError:
                 pass
-        self._mark_dead(ActorDiedError(self.actor_id, "timed out resolving actor address"))
 
     def _encode_spec(self, spec: TaskSpec) -> bytes:
         """Native submit record when eligible (plain-value args + a loaded

@@ -1,5 +1,4 @@
-"""RL library — RLlib-equivalent stack (port of ``ray_tpu/rl``, its PPO
-path).
+"""RL library — RLlib-equivalent stack (port of ``ray_tpu/rl``).
 
 Reference architecture (reference ``rllib/``): an ``Algorithm`` drives a
 sample→learn loop over an EnvRunner actor fleet (CPU) and a Learner
@@ -8,10 +7,14 @@ numpy-only processes (no torch or CUDA in rollout workers), and fleet
 fan-out goes through :class:`FaultTolerantActorManager` exactly as the
 reference does (``rllib/utils/actor_manager.py:198``).
 
-The JAX package's other algorithms (DQN, IMPALA, APPO, SAC, CQL, MARWIL,
-DreamerV3), offline data, multi-agent envs and the replay buffers come in
-a later slice, as do Podracer's Anakin and Sebulba; their names refuse
-with their ROADMAP item until then (``common/status.py::WAITING``).
+Beside PPO it has the JAX package's other algorithms — DQN, SAC and CQL
+on the replay buffers, BC and MARWIL on offline JSON data, IMPALA and
+APPO with aggregator actors and V-trace, DreamerV3's world model,
+multi-agent PPO — and Podracer's scale-out (``Algorithm.scale_out``):
+Sebulba's runner fleets streaming into a learner actor, and Anakin's
+in-device act+learn loop over ``TorchCartPole``. Every learner takes an
+explicit ``device`` (None means CUDA) and its random draws from a
+``torch.Generator`` on that device, or as arguments.
 """
 
 from ray_tpu_torch.rl.actor_manager import FaultTolerantActorManager  # noqa: F401
@@ -28,37 +31,69 @@ from ray_tpu_torch.rl.connectors import (  # noqa: F401
     Lambda,
     ObsNormalizer,
 )
+from ray_tpu_torch.rl.dqn import (  # noqa: F401
+    DQN,
+    DQNConfig,
+    DQNLearner,
+    ReplayBuffer,
+)
 from ray_tpu_torch.rl.envs import (  # noqa: F401
     CartPoleEnv,
+    JaxCartPole,
+    TorchCartPole,
     make_env,
     register_jax_env,
 )
+from ray_tpu_torch.rl.podracer import (  # noqa: F401
+    Anakin,
+    FragmentBatch,
+    PodracerConfig,
+    PodracerError,
+    SebulbaHandle,
+)
+from ray_tpu_torch.rl.impala import (  # noqa: F401
+    IMPALA,
+    IMPALAConfig,
+    IMPALALearner,
+)
+from ray_tpu_torch.rl.multi_agent import (  # noqa: F401
+    CoordinationGameEnv,
+    MultiAgentEnvRunner,
+    MultiAgentPPO,
+    MultiAgentPPOConfig,
+)
+from ray_tpu_torch.rl.cql import (  # noqa: F401
+    CQL,
+    CQLConfig,
+    CQLLearner,
+)
+from ray_tpu_torch.rl.marwil import (  # noqa: F401
+    MARWIL,
+    MARWILConfig,
+)
+from ray_tpu_torch.rl.offline import (  # noqa: F401
+    BC,
+    BCConfig,
+    JsonReader,
+    JsonWriter,
+    collect,
+)
+from ray_tpu_torch.rl.sac import (  # noqa: F401
+    SAC,
+    SACConfig,
+    SACLearner,
+)
+from ray_tpu_torch.rl.appo import (  # noqa: F401
+    APPO,
+    APPOConfig,
+    APPOLearner,
+)
+from ray_tpu_torch.rl.dreamerv3 import (  # noqa: F401
+    DreamerV3,
+    DreamerV3Config,
+    DreamerV3Learner,
+)
 
-# the JAX package's rl names a later slice brings, by WAITING entry
-_LATER = {
-    "rl_later": (
-        "DQN", "DQNConfig", "DQNLearner", "ReplayBuffer", "IMPALA",
-        "IMPALAConfig", "IMPALALearner", "CoordinationGameEnv",
-        "MultiAgentEnvRunner", "MultiAgentPPO", "MultiAgentPPOConfig", "CQL",
-        "CQLConfig", "CQLLearner", "MARWIL", "MARWILConfig", "BC",
-        "BCConfig", "JsonReader", "JsonWriter", "collect", "SAC",
-        "SACConfig", "SACLearner", "APPO", "APPOConfig", "APPOLearner",
-        "DreamerV3", "DreamerV3Config", "DreamerV3Learner"),
-    "rl_anakin": (
-        "Anakin", "FragmentBatch", "PodracerConfig", "PodracerError",
-        "SebulbaHandle", "JaxCartPole"),
-}
-_WAITING = {name: item for item, names in _LATER.items() for name in names}
-
-
-def __getattr__(name):
-    if name in _WAITING:
-        from ray_tpu_torch.common.status import not_ported
-
-        raise not_ported(_WAITING[name])
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-from ray_tpu_torch.util.usage import record_library_usage as _record_usage  # noqa: E402
+from ray_tpu_torch.util.usage import record_library_usage as _record_usage
 _record_usage("rl")
 del _record_usage

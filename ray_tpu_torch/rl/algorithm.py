@@ -225,11 +225,16 @@ class Algorithm:
 
     # ------------------------------------------------------------ scale-out
     def scale_out(self, podracer: "Any"):
-        """Podracer scale-out (Sebulba runner fleets, Anakin in-graph
-        updates): refuses until Podracer is ported."""
-        from ray_tpu_torch.common.status import not_ported
+        """Podracer scale-out (rl/podracer.py): Sebulba mode returns a
+        live :class:`~ray_tpu_torch.rl.podracer.SebulbaHandle` streaming
+        fragments from dedicated runner actors into a learner actor (on a
+        GPU lease when the learner device is CUDA); Anakin mode returns an
+        :class:`~ray_tpu_torch.rl.podracer.Anakin` running in-device
+        updates.  ``stop()``/``train()`` fold the trained weights back
+        into this algorithm."""
+        from ray_tpu_torch.rl.podracer import scale_out as _scale_out
 
-        raise not_ported("rl_anakin")
+        return _scale_out(self, podracer)
 
 
 class PPO(Algorithm):

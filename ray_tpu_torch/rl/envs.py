@@ -7,10 +7,11 @@ workers shouldn't need an accelerator runtime anyway — these are pure
 numpy. ``make_env`` also accepts any user callable returning an object
 with the same API, so external gymnasium envs plug straight in.
 
-The JAX package's in-graph envs for Anakin (``JaxCartPole``,
-``register_jax_env``, ``get_jax_env``) come with Podracer in a later
-slice and refuse until then (``WAITING["rl_anakin"]``), as does the
-multi-agent coordination game.
+Anakin's in-device env is :class:`TorchCartPole` (exported under the JAX
+package's name ``JaxCartPole`` too): the same CartPole as batched tensor
+functions on the learner's device, registered for Anakin with
+``register_jax_env`` and found with ``get_jax_env``. ``make_env`` also
+builds the multi-agent coordination game (``rl/multi_agent.py``).
 """
 
 from __future__ import annotations
@@ -18,8 +19,6 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
-
-from ray_tpu_torch.common.status import not_ported
 
 
 class CartPoleEnv:
@@ -157,25 +156,130 @@ class PendulumEnv:
         return self._obs(), -float(cost), False, truncated, {}
 
 
+def _uniform(draw, shape):
+    """The reset distribution U(-0.05, 0.05) over ``shape``: drawn from
+    ``draw`` when it is a ``torch.Generator`` (on its device), else
+    ``draw`` itself, values already drawn (a tensor of ``shape``)."""
+    import torch
+
+    if isinstance(draw, torch.Generator):
+        u = torch.rand(shape, generator=draw, device=draw.device)
+        return u * 0.1 - 0.05
+    if tuple(draw.shape) != tuple(shape):
+        raise ValueError(f"uniforms of shape {tuple(draw.shape)}, want "
+                         f"{tuple(shape)}")
+    return draw.float()
+
+
+class TorchCartPole:
+    """Functional, batched CartPole on device tensors for in-device
+    (Anakin) training: ``reset``/``step`` are pure functions over a state
+    dict of tensors, with no host sync, so a whole unroll stays on the
+    card (the JAX package's ``JaxCartPole``, ``ray_tpu/rl/envs.py``,
+    whose functions run under ``jax.jit``/``lax.scan``). Dynamics,
+    termination bounds and the reset distribution are
+    :class:`CartPoleEnv`'s; ``step`` auto-resets done envs in place (the
+    returned obs is the NEXT policy input, so a fresh episode starts
+    without leaving the device). Where the JAX env takes a PRNG key, this
+    one takes a ``torch.Generator`` or the uniforms themselves (values
+    in [-0.05, 0.05) of the reset's shape). torch is imported inside the
+    functions: this module stays importable in numpy-only runners."""
+
+    observation_size = 4
+    num_actions = 2
+    max_episode_steps = 500
+
+    @staticmethod
+    def reset(draw, batch_size: int):
+        """-> (state, obs): state {"s": (B, 4), "steps": (B,) int32}."""
+        import torch
+
+        s = _uniform(draw, (batch_size, 4))
+        return ({"s": s, "steps": torch.zeros(batch_size, dtype=torch.int32,
+                                              device=s.device)},
+                s.float())
+
+    @staticmethod
+    def physics(s, action):
+        """One Euler step of the cart-pole dynamics, batched: ``s``
+        (B, 4), ``action`` (B,) in {0, 1} -> next (B, 4).  Same
+        equations, same constants as ``CartPoleEnv.step``."""
+        import torch
+
+        E = CartPoleEnv
+        x, x_dot, theta, theta_dot = s[:, 0], s[:, 1], s[:, 2], s[:, 3]
+        force = torch.where(action == 1, E.FORCE, -E.FORCE).to(s.dtype)
+        total_mass = E.CART_MASS + E.POLE_MASS
+        pole_ml = E.POLE_MASS * E.POLE_HALF_LEN
+        cos_t, sin_t = torch.cos(theta), torch.sin(theta)
+        temp = (force + pole_ml * theta_dot**2 * sin_t) / total_mass
+        theta_acc = (E.GRAVITY * sin_t - cos_t * temp) / (
+            E.POLE_HALF_LEN
+            * (4.0 / 3.0 - E.POLE_MASS * cos_t**2 / total_mass))
+        x_acc = temp - pole_ml * theta_acc * cos_t / total_mass
+        return torch.stack([
+            x + E.DT * x_dot,
+            x_dot + E.DT * x_acc,
+            theta + E.DT * theta_dot,
+            theta_dot + E.DT * theta_acc,
+        ], dim=1)
+
+    @staticmethod
+    def step(state, action, draw):
+        """-> (state', obs, reward, done); done envs are re-drawn from
+        the reset distribution in place (their obs is the new episode's
+        first observation)."""
+        import torch
+
+        E = CartPoleEnv
+        s2 = TorchCartPole.physics(state["s"], action)
+        steps = state["steps"] + 1
+        terminated = ((s2[:, 0].abs() > E.X_LIMIT)
+                      | (s2[:, 2].abs() > E.THETA_LIMIT))
+        truncated = steps >= TorchCartPole.max_episode_steps
+        done = terminated | truncated
+        fresh = _uniform(draw, tuple(s2.shape))
+        s_next = torch.where(done[:, None], fresh, s2)
+        steps = torch.where(done, torch.zeros_like(steps), steps)
+        reward = torch.ones(s2.shape[0], dtype=torch.float32,
+                            device=s2.device)
+        return ({"s": s_next, "steps": steps}, s_next.float(), reward,
+                done)
+
+
+JaxCartPole = TorchCartPole  # the JAX package's name
+
+_JAX_REGISTRY: Dict[str, Any] = {
+    "CartPole-v1": TorchCartPole,
+}
+
+
 def register_jax_env(name: str, env_cls: Any) -> None:
-    """Anakin's in-graph env registry: refuses until Podracer is
-    ported."""
-    raise not_ported("rl_anakin")
+    """Register a functional in-device env (TorchCartPole-shaped
+    ``reset(draw, batch)`` / ``step(state, action, draw)``) for
+    Anakin."""
+    _JAX_REGISTRY[name] = env_cls
 
 
 def get_jax_env(spec: Union[str, Any]):
-    """Anakin's in-graph env lookup: refuses until Podracer is ported."""
-    raise not_ported("rl_anakin")
-
-
-def __getattr__(name):
-    if name == "JaxCartPole":
-        raise not_ported("rl_anakin")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    """Resolve an Anakin in-device env: registered name, or any object
+    already exposing the functional reset/step surface."""
+    if isinstance(spec, str):
+        if spec not in _JAX_REGISTRY:
+            raise KeyError(
+                f"no in-device env registered for {spec!r}; register one "
+                "with register_jax_env() or use Sebulba mode. Known: "
+                f"{sorted(_JAX_REGISTRY)}")
+        return _JAX_REGISTRY[spec]
+    if hasattr(spec, "reset") and hasattr(spec, "step"):
+        return spec
+    raise TypeError(f"{spec!r} is not an in-device env")
 
 
 def _coordination_factory(seed=None):
-    raise not_ported("rl_later")  # rl/multi_agent.py's coordination game
+    from ray_tpu_torch.rl.multi_agent import CoordinationGameEnv
+
+    return CoordinationGameEnv(seed=seed)
 
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {

@@ -28,7 +28,7 @@ the JAX package's learner of the same seed sees the same minibatches.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -38,9 +38,10 @@ from ray_tpu_torch.rl.module import torch_forward, torch_lstm_forward_seq
 class _Adam:
     """optax's ``chain(clip_by_global_norm(max_norm), adam(lr))`` over a
     dict of tensors (its leaves in sorted key order, as ``jax.tree``
-    flattens a dict)."""
+    flattens a dict); ``max_norm=None`` is optax's plain ``adam(lr)``."""
 
-    def __init__(self, lr: float, max_norm: float, b1: float = 0.9,
+    def __init__(self, lr: float, max_norm: Optional[float],
+                 b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
         self.lr, self.max_norm = lr, max_norm
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -57,21 +58,42 @@ class _Adam:
         import torch
 
         keys = sorted(params)
-        g_norm = torch.sqrt(sum(grads[k].square().sum() for k in keys))
-        clip = g_norm >= self.max_norm
+        if self.max_norm is not None:
+            g_norm = torch.sqrt(sum(grads[k].square().sum() for k in keys))
+            clip = g_norm >= self.max_norm
         count = state["count"] + 1
-        bc1 = 1 - torch.tensor(self.b1, dtype=torch.float32) ** count
-        bc2 = 1 - torch.tensor(self.b2, dtype=torch.float32) ** count
+        # the bias corrections in f32 on the host: a host scalar moved to
+        # the device would synchronize the step
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** count)
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** count)
         new, mu, nu = {}, {}, {}
         for k in keys:
             g = grads[k]
-            g = torch.where(clip, g / g_norm.to(g.dtype) * self.max_norm, g)
+            if self.max_norm is not None:
+                g = torch.where(clip, g / g_norm.to(g.dtype) * self.max_norm,
+                                g)
             mu[k] = (1 - self.b1) * g + self.b1 * state["mu"][k]
             nu[k] = (1 - self.b2) * g.square() + self.b2 * state["nu"][k]
-            u = (mu[k] / bc1.to(g.device)) / (
-                torch.sqrt(nu[k] / bc2.to(g.device)) + self.eps)
+            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
             new[k] = params[k] + (-self.lr) * u
         return new, {"count": count, "mu": mu, "nu": nu}
+
+
+def value_and_grad(loss_fn: Callable, params, *args):
+    """``(loss, aux, grads)`` of ``loss_fn(params, *args) -> (loss, aux)``
+    at ``params`` (a dict of tensors), as ``jax.value_and_grad(...,
+    has_aux=True)`` gives them (zeros for a leaf the loss does not use);
+    loss and aux come back detached."""
+    import torch
+
+    keys = sorted(params)
+    leaves = [params[k].detach().requires_grad_() for k in keys]
+    with torch.enable_grad():
+        loss, aux = loss_fn(dict(zip(keys, leaves)), *args)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
+            dict(zip(keys, grads)))
 
 
 def _tensor(value, device):
@@ -150,16 +172,9 @@ class PPOLearner:
 
     def _grads(self, batch):
         """(grads dict, aux dict with total_loss) at the current params."""
-        import torch
-
-        keys = sorted(self._params)
-        leaves = [self._params[k].detach().requires_grad_() for k in keys]
-        with torch.enable_grad():
-            total, aux = self._loss(dict(zip(keys, leaves)), batch)
-            grads = torch.autograd.grad(total, leaves)
-        aux = {k: v.detach() for k, v in aux.items()}
-        aux["total_loss"] = total.detach()
-        return dict(zip(keys, grads)), aux
+        total, aux, grads = value_and_grad(self._loss, self._params, batch)
+        aux["total_loss"] = total
+        return grads, aux
 
     def _apply(self, grads):
         self._params, self._opt_state = self._optimizer.update(

@@ -102,6 +102,16 @@ def torch_forward(params, obs):
     return logits, value
 
 
+def torch_gumbel(shape, generator, device):
+    """Gumbel(0, 1) noise on ``device`` from ``generator``: -log of an
+    Exp(1) draw. argmax(logits + this) is a categorical draw, the way
+    ``jax.random.categorical`` draws (the learners' random draws)."""
+    import torch
+
+    e = torch.empty(shape, device=device).exponential_(generator=generator)
+    return -torch.log(e)
+
+
 def np_sample_action(params: Params, obs: np.ndarray,
                      rng: np.random.Generator):
     """Single-obs categorical sample → (action, logp, value)."""

@@ -211,6 +211,7 @@ class RpcServer:
         self._server: Optional[asyncio.AbstractServer] = None
         self._io = IoContext.current()
         self._conns: set = set()
+        self._stopping = False
 
     def register(self, method: str, handler: Callable[..., Awaitable[Any]]):
         self._handlers[method] = handler
@@ -232,11 +233,18 @@ class RpcServer:
         self._io.run(self._start())
 
     async def _start(self):
+        self._stopping = False
         self._server = await asyncio.start_server(self._on_conn, self.host, self.port)
         if self.port == 0:
             self.port = self._server.sockets[0].getsockname()[1]
 
     async def _on_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        if self._stopping:
+            # accepted before stop() closed the listener, handler run after
+            # it closed the known connections: wait_closed() would wait on
+            # this one for as long as the peer keeps it open
+            writer.close()
+            return
         self._conns.add(writer)
         write_lock = asyncio.Lock()
         # a connection whose first frame is a REQ (no HELLO) is a legacy
@@ -327,6 +335,7 @@ class RpcServer:
 
     async def _stop(self):
         assert self._server is not None
+        self._stopping = True
         self._server.close()
         for w in list(self._conns):
             try:

@@ -15,8 +15,8 @@ the CPU.
   the KV backend, one synchronized update: metrics and weights within
   1e-5 of JAX's; 2 PPO iterations with 2 env runners: the same
   ``num_env_steps_sampled`` and weights within 1e-4;
-- the names of ``ray_tpu.rl`` not ported yet refuse with their ROADMAP
-  item, and the rest of its names exist.
+- every public name of ``ray_tpu.rl`` exists in the port, and none
+  refuses.
 
 The port's learners run on the CPU (``device="cpu"``,
 ``learner_device="cpu"``; their default is CUDA). ``ray_tpu``'s cluster
@@ -343,41 +343,27 @@ def test_ppo_iterations_match_jax(cluster_results):
 # ------------------------------------------------------ names and refusals
 
 def test_names_ported_or_refused():
+    """Every public name of ``ray_tpu.rl`` (its submodules aside) exists
+    in the port and none refuses: RL is ported whole."""
+    import types
+
     import ray_tpu.rl as jrl
 
     import ray_tpu_torch.rl as trl
 
-    ported = ["FaultTolerantActorManager", "Algorithm", "AlgorithmConfig",
-              "PPO", "PPOConfig", "CartPoleEnv", "make_env", "Connector",
-              "ConnectorPipeline", "FrameStack", "Lambda", "ObsNormalizer"]
-    for name in ported:
-        assert getattr(trl, name) is not None
-    later = {"DQN": "RL beyond PPO", "IMPALAConfig": "RL beyond PPO",
-             "SAC": "RL beyond PPO", "BC": "RL beyond PPO",
-             "MultiAgentPPO": "RL beyond PPO",
-             "DreamerV3": "RL beyond PPO", "Anakin": "Podracer",
-             "SebulbaHandle": "Podracer", "JaxCartPole": "Podracer"}
-    for name, item in later.items():
-        assert hasattr(jrl, name)
-        with pytest.raises(NotImplementedError, match=f"item 14, part 2, "
-                           f".*{item}"):
-            getattr(trl, name)
-    # every public name of ray_tpu.rl (its submodules aside) is ported or
-    # refuses; a name missing altogether raises AttributeError here
-    import types
+    names = [n for n in dir(jrl) if not n.startswith("_")
+             and not isinstance(getattr(jrl, n), types.ModuleType)]
+    assert {"DQN", "IMPALAConfig", "SAC", "BC", "MultiAgentPPO",
+            "DreamerV3", "Anakin", "SebulbaHandle", "JaxCartPole"} <= set(
+                names)
+    for name in names:
+        assert getattr(trl, name) is not None, name
+    assert tenvs.get_jax_env("CartPole-v1") is tenvs.TorchCartPole
+    trl.register_jax_env("x", tenvs.TorchCartPole)
+    assert tenvs.get_jax_env("x") is tenvs.TorchCartPole
+    from ray_tpu_torch.rl.multi_agent import CoordinationGameEnv
 
-    for name in (n for n in dir(jrl) if not n.startswith("_")):
-        if isinstance(getattr(jrl, name), types.ModuleType):
-            continue
-        try:
-            getattr(trl, name)
-        except NotImplementedError:
-            pass
-    with pytest.raises(NotImplementedError, match="Podracer"):
-        trl.register_jax_env("x", object)
-    with pytest.raises(NotImplementedError, match="Podracer"):
-        tenvs.get_jax_env("CartPole-v1")
-    with pytest.raises(NotImplementedError, match="Podracer"):
-        trl.PPO.scale_out(None, None)
-    with pytest.raises(NotImplementedError, match="RL beyond PPO"):
-        tenvs.make_env("coordination")
+    assert isinstance(tenvs.make_env("coordination"), CoordinationGameEnv)
+    from ray_tpu_torch.common.status import WAITING
+
+    assert not [k for k in WAITING if k.startswith("rl")]

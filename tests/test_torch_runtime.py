@@ -222,6 +222,40 @@ def test_rpc_schema_verdicts_equal_ray_tpu():
                 for f in tschema.RPC_SCHEMAS["create_actor"].fields])
 
 
+def test_rpc_server_stop_closes_a_connection_accepted_as_it_stops():
+    """A connection the server accepted but whose handler runs only after
+    stop() began is closed by that handler, so stop() returns while the
+    peer still holds its end; asyncio's wait_closed() otherwise waits on
+    it as long as the peer keeps it open (a runtime shutdown that hangs
+    on a worker connecting at that moment)."""
+    import asyncio
+    import socket
+    import threading
+
+    from ray_tpu_torch.rpc.rpc import RpcServer
+
+    server = RpcServer()
+    handler = server._on_conn
+
+    async def after_stop_began(reader, writer):
+        while not server._stopping:
+            await asyncio.sleep(0.01)
+        await handler(reader, writer)
+
+    server._on_conn = after_stop_began
+    server.start()
+    peer = socket.create_connection(server.address, timeout=10)
+    try:
+        time.sleep(0.2)              # accepted; its handler is held
+        stopped = threading.Event()
+        threading.Thread(target=lambda: (server.stop(), stopped.set()),
+                         daemon=True).start()
+        assert stopped.wait(10), "stop() waited on the late connection"
+        assert peer.recv(1) == b""   # the server closed it
+    finally:
+        peer.close()
+
+
 def test_natives_built_and_fastspec_bytes_equal_ray_tpu():
     """The port's natives really load (no silent pure-Python fallback)
     from ray_tpu_torch/_build, and encode byte for byte as ray_tpu's."""
@@ -407,6 +441,19 @@ def _rl_imports():
     assert ray_tpu_torch.rl.FaultTolerantActorManager is not None
 
 
+def _rl_later_imports():
+    """RL beyond PPO is ported (tests/test_torch_rl_algos.py)."""
+    assert ray_tpu_torch.rl.DQN is not None
+    assert ray_tpu_torch.rl.DreamerV3Learner is not None
+
+
+def _rl_anakin_imports():
+    """Podracer is ported (tests/test_torch_podracer.py)."""
+    assert ray_tpu_torch.rl.SebulbaHandle is not None
+    assert ray_tpu_torch.rl.JaxCartPole is ray_tpu_torch.rl.TorchCartPole
+    assert ray_tpu_torch.rl.envs.get_jax_env("CartPole-v1") is not None
+
+
 def _parallel_imports():
     assert ray_tpu_torch.parallel.make_mesh is not None
     assert ray_tpu_torch.parallel.shard_pytree is not None
@@ -440,10 +487,8 @@ _WAITING_CASES = {
     "collective_quantized": (_quantized_group, None),
     "train_pipeline": (_train_pipeline, None),
     "rl": (_rl_imports, None),
-    "rl_later": (lambda: ray_tpu_torch.rl.DQN,
-                 "item 14, part 2, RL beyond PPO"),
-    "rl_anakin": (lambda: ray_tpu_torch.rl.PPO.scale_out(None, None),
-                  "item 14, part 2, RL's Podracer"),
+    "rl_later": (_rl_later_imports, None),
+    "rl_anakin": (_rl_anakin_imports, None),
     "parallel": (_parallel_imports, None),
     "train": (_train_imports, None),
     "cluster_control_plane": (_cluster_control_plane, "control-plane"),
@@ -505,6 +550,42 @@ def test_owner_waits_for_a_return_a_borrower_asks_for_early(rt):
     assert rt.get(resolve.remote([ref]), timeout=TIMEOUT) == 1
     assert rt.get(slow.count.remote(), timeout=TIMEOUT) == 1
     rt.kill(slow)
+
+
+def test_actor_handle_waits_for_a_slow_creation(rt, monkeypatch, caplog):
+    """A call on an actor whose constructor outlasts the handle's GCS
+    window waits for the creation, as the reference's calls queue until
+    the actor is ALIVE or DEAD, and the handle warns while it waits (the
+    JAX package's handle gives up after 60 s; ROADMAP.md, places where the
+    port differs on purpose)."""
+    import logging
+
+    from ray_tpu_torch.common.config import GLOBAL_CONFIG
+    from ray_tpu_torch.core_worker import submitter
+
+    monkeypatch.setenv("RT_gcs_rpc_server_reconnect_timeout_s", "1")
+    monkeypatch.setattr(submitter, "PENDING_WARN_S", 0.5)
+    GLOBAL_CONFIG.reset_cache()
+    try:
+        @rt.remote
+        class SlowStart:
+            def __init__(self):
+                time.sleep(2.5)
+
+            def ping(self):
+                return "up"
+
+        with caplog.at_level(logging.WARNING,
+                             logger="ray_tpu_torch.core_worker.submitter"):
+            actor = SlowStart.remote()
+            assert rt.get(actor.ping.remote(), timeout=TIMEOUT) == "up"
+        waits = [r.getMessage() for r in caplog.records
+                 if "still PENDING_CREATION" in r.getMessage()]
+        assert waits, caplog.records
+        rt.kill(actor)
+    finally:
+        monkeypatch.delenv("RT_gcs_rpc_server_reconnect_timeout_s")
+        GLOBAL_CONFIG.reset_cache()
 
 
 def test_owner_reconstructs_a_value_whose_spill_file_was_lost(rt):
