@@ -225,7 +225,28 @@ Phases (any failure exits non-zero, and no result line is printed):
      tests/test_rl.py::TestIMPALA's settings with the learner on the
      card: best return 120 within 240 s, num_updates; no process of the
      session after shutdown();
-  17. the kernels line, then the result line.
+  17. Data, batch LLM inference and Tune, under a fresh init(), after a
+     line with the card's pyarrow, pandas, PIL and optuna: (a) phase 8's
+     rows in a Dataset of 4 blocks feed 1b_bench's step through
+     iter_torch_batches(device="cuda") for phase 8's 6 steps: the first
+     loss bit-equal to phase 8's, the first four within 5e-3, K1 and
+     flash_bwd_kernel launched as phase 8 counts them, tokens/s beside
+     phase 8's, each batch's host-to-card ms; a seeded random_shuffle of
+     64 sequences whose card batches hold the bytes of the host's
+     iter_batches; (b) a JaxTrainer gang of one GPU worker with
+     datasets=: the worker's iter_torch_batches() feed 3 f32 debug steps,
+     losses within 1e-5 of the same steps here, K1 f32, K2a, K2b once per
+     layer per step, GPU 1 after; (c) phase 5's prompts through
+     build_llm_processor(ProcessorConfig(model="8b", num_gpus=1, phase
+     5's paged engine)): the stage actor seeds the weights itself, its
+     greedy tokens equal phase 5's paged tokens, K3 once per layer per
+     decode step in the actor, rows/s and tokens/s beside phase 5's;
+     (d) Tuner(JaxTrainer(use_gpu=True)) over a 2-point learning-rate
+     grid, one trial at a time: both finish, the best result is the lower
+     final loss, GPU 1 after; each GPU-leased actor's creation split
+     (raylet spawn, factory fork, torch import, first CUDA call) on a line
+     of its own; no process of the session after shutdown();
+  18. the kernels line, then the result line.
 
 Needs one CUDA card, nvcc, about 70 GB of device memory, about 9 GB of
 /dev/shm (phase 11's object store and channels; phase 13's channels take
@@ -4353,6 +4374,550 @@ def rl_algos_check(device, smi=""):
     return out
 
 
+# ------------------------------------------------------------- phase 17
+# Data, batch LLM inference and Tune on the card, under one fresh init():
+# (a) 1b_bench fed by a Dataset's CUDA batches; (b) a one-GPU Train gang
+# reading its dataset shard; (c) 8b batch inference through an engine
+# stage on a GPU lease; (d) Tune over a one-GPU trainer. Each GPU-leased
+# actor reports its creation split from the stamps the runtime keeps: the
+# raylet's spawn (RT_SPAWN_T), the factory's fork (RT_CHILD_T), the
+# creation's arrival at the worker (RT_CREATE_T), then torch's import and
+# the first CUDA call.
+
+DATA_BLOCKS = 4          # phase 8's rows over this many blocks
+DATA_STEPS = 5           # bench.run's timed steps (+ its warm-up): phase 8's
+SHUFFLE_ROWS = 64        # (a)'s seeded shuffle: sequences of phase 8's length
+GANG_STEPS = 3           # (b) and (d): f32 debug steps a worker takes
+GANG_RTOL = 1e-5         # (b): the worker's losses against the driver's
+TUNE_LRS = (1e-3, 3e-3)  # (d)'s grid
+DEBUG_BATCH, DEBUG_SEQ = 4, 64   # phase 7's debug batch
+
+
+def actor_start_split():
+    """Inside a GPU-leased actor, at the top of its user code: seconds from
+    the raylet's spawn to the factory's fork, from the fork to the
+    creation's arrival (a pooled worker waits there for an actor), from
+    the arrival to here, for torch's import (0 when something already
+    loaded it) and for the first CUDA call."""
+    import sys
+
+    now = time.monotonic()
+    spawn = float(os.environ.get("RT_SPAWN_T") or "nan")
+    fork = float(os.environ.get("RT_CHILD_T") or "nan")
+    create = float(os.environ.get("RT_CREATE_T") or "nan")
+    had_torch = "torch" in sys.modules
+    t = time.monotonic()
+    import torch
+
+    t_torch = time.monotonic()
+    if torch.cuda.is_available():     # else the actor's device raises later
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+    t_cuda = time.monotonic()
+    return {"spawn_to_fork_s": fork - spawn, "fork_to_create_s": create - fork,
+            "create_to_user_s": now - create,
+            "torch_import_s": t_torch - t, "torch_loaded_before": had_torch,
+            "first_cuda_s": t_cuda - t_torch,
+            "create_to_cuda_s": t_cuda - create,
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def _log_split(what, split):
+    log(f"[17] {what} creation: spawn->fork {split['spawn_to_fork_s']:.3f} "
+        f"s, fork->creation push {split['fork_to_create_s']:.3f} s (in the "
+        f"pool), push->user code {split['create_to_user_s']:.3f} s, torch "
+        f"import {split['torch_import_s']:.3f} s (loaded before: "
+        f"{split['torch_loaded_before']}), first CUDA call "
+        f"{split['first_cuda_s']:.3f} s; push->CUDA "
+        f"{split['create_to_cuda_s']:.3f} s")
+
+
+def phase8_tokens(device, model="1b_bench", batch=8, seq=2048, seed=0):
+    """Phase 8's batch: bench.run draws it from one generator of the seed
+    after the weights."""
+    import torch
+
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import llama
+
+    cfg = bench.CONFIGS[model]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    llama.init_params(cfg, gen, device)      # the weights' draws, dropped
+    return torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                         device=device, dtype=torch.int32).cpu().numpy()
+
+
+def dataset_fed_run(model, batch, seq, steps, device, batches, seed=0):
+    """``ray_tpu_torch.bench.run``'s training, one warm-up step and
+    ``steps`` timed ones queued back to back, with each step's batch the
+    next of ``batches`` (``iter_torch_batches``) in place of bench.run's
+    fixed random one; the weights are bench.run's (drawn first from the
+    seed's generator). Returns bench.run's losses, tokens/s and step ms,
+    and the host's wait for each batch."""
+    import torch
+
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (OptimizerConfig,
+                                               init_train_state,
+                                               make_train_step)
+
+    cfg = bench.CONFIGS[model]
+    opt = OptimizerConfig(warmup_steps=1, decay_steps=1000).make()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = init_train_state(lambda g: llama.init_params(cfg, g, device),
+                             opt, gen, device)
+    step_fn = make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt)
+    waits = []
+
+    def next_batch():
+        t = time.perf_counter()
+        b = next(batches)
+        waits.append(1e3 * (time.perf_counter() - t))
+        return b
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    state, m = step_fn(state, next_batch())            # warm-up
+    losses = [m["loss"]]
+    float(m["loss"])
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step_fn(state, next_batch())
+        losses.append(m["loss"])
+    float(m["loss"])                                    # waits for every step
+    dt = time.perf_counter() - t0
+    out = {"losses": [float(x) for x in losses],
+           "tokens_per_sec": batch * seq * steps / dt,
+           "step_ms": 1e3 * dt / steps, "batch_wait_ms": waits}
+    if device.type == "cuda":
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    return out
+
+
+def dataset_train_check(device, phase8, model="1b_bench", batch=8, seq=2048,
+                        steps=DATA_STEPS):
+    """17 (a): phase 8's rows, repeated for each step, in a Dataset of
+    DATA_BLOCKS blocks (batches cross block boundaries); bench.run's step
+    takes its batches from ``iter_torch_batches(device)``
+    (:func:`dataset_fed_run`). The first loss
+    equals phase 8's bit for bit, the first four within UPDATED_RTOL (the
+    bf16 backward's dQ order, as phase 12 holds them); K1 and
+    flash_bwd_kernel launch as phase 8 counts them. Then the host-to-card
+    ms of each batch (from next() to the batch on the card), and a seeded
+    random_shuffle of SHUFFLE_ROWS sequences whose card batches hold the
+    same bytes as the same pipeline's iter_batches on the host."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import bench, data
+
+    cfg = bench.CONFIGS[model]
+    rows = phase8_tokens(device, model, batch, seq)
+    n = steps + 1
+    ds = data.from_numpy({"tokens": np.tile(rows, (n, 1))}).repartition(
+        DATA_BLOCKS)
+    out = {"rows": n * batch, "blocks": ds.num_blocks()}
+    reset_flash_launches()
+    res = dataset_fed_run(model, batch, seq, steps, device,
+                          ds.iter_torch_batches(batch_size=batch,
+                                                device=device))
+    out["launches"] = flash_launches()
+    out["losses"] = res["losses"]
+    out["losses_phase8"] = phase8["losses"]
+    out["tokens_per_s"] = res["tokens_per_sec"]
+    out["tokens_per_s_phase8"] = phase8["tokens_per_sec"]
+    out["step_ms"] = res["step_ms"]
+    out["batch_wait_ms"] = res["batch_wait_ms"]
+    out["first_loss_bit_equal_phase8"] = res["losses"][0] == \
+        phase8["losses"][0]
+    out["rel_err_vs_phase8"] = [abs(a - b) / abs(b) for a, b in
+                                zip(res["losses"], phase8["losses"])]
+    if device.type == "cuda":
+        out["peak_memory_gb"] = res["peak_memory_gb"]
+    del res
+    L = cfg.n_layers
+    want = {"fwd": (2 if cfg.remat else 1) * n * L, "bwd": n * L, "dq": 0,
+            "dkv": 0}
+    if device.type == "cuda":     # on the CPU the wrappers launch nothing
+        assert out["launches"] == want, (out["launches"], want)
+    assert out["first_loss_bit_equal_phase8"], out
+    assert max(out["rel_err_vs_phase8"][:PHASE8_STEPS]) <= UPDATED_RTOL, out
+    # the host-to-card time of each batch, synchronized
+    h2d, it = [], ds.iter_torch_batches(batch_size=batch, device=device)
+    while True:
+        t = time.perf_counter()
+        b = next(it, None)
+        if b is None:
+            break
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        h2d.append(1e3 * (time.perf_counter() - t))
+        assert b["tokens"].device.type == device.type
+        assert np.array_equal(b["tokens"].cpu().numpy(), rows)
+    out["h2d_ms"] = h2d
+    out["h2d_bytes"] = int(rows.nbytes)
+    # a seeded shuffle: the card's batches hold the host's bytes
+    srows = np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (SHUFFLE_ROWS, seq)).astype(np.int32)
+    sds = data.from_numpy({"tokens": srows}).repartition(
+        DATA_BLOCKS).random_shuffle(seed=17)
+    card = [b["tokens"] for b in sds.iter_torch_batches(batch_size=batch,
+                                                        device=device)]
+    host = [b["tokens"] for b in sds.iter_batches(batch_size=batch)]
+    out["shuffle_equal"] = (
+        len(card) == len(host) == SHUFFLE_ROWS // batch and all(
+            c.device.type == device.type
+            and c.cpu().numpy().tobytes() == h.tobytes()
+            for c, h in zip(card, host)))
+    out["shuffle_moved_rows"] = not np.array_equal(np.concatenate(host),
+                                                   srows)
+    assert out["shuffle_equal"] and out["shuffle_moved_rows"], out
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _debug_state(device, lr, seed=0):
+    """The f32 debug Llama's weights (seeded on ``device``), optimizer and
+    step, as phase 7 trains it."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.training import (OptimizerConfig,
+                                               init_train_state,
+                                               make_train_step)
+
+    cfg = llama.CONFIGS["debug"]
+    opt = OptimizerConfig(learning_rate=lr, warmup_steps=2,
+                          decay_steps=20).make()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = init_train_state(lambda g: llama.init_params(cfg, g, device),
+                             opt, gen, device)
+    return state, make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt)
+
+
+def gang_worker(config):
+    """17 (b) and (d)'s ``train_loop_per_worker``: f32 debug steps on the
+    worker's GPU (``device=None``: the card under its lease), its batches
+    from its dataset shard's ``iter_torch_batches()`` when the trainer has
+    datasets, else phase 7's seeded batch; losses, launches and the
+    worker's creation split reported once."""
+    split = actor_start_split()
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import resolve_device, train
+
+    device = resolve_device(config.get("device"))
+    ctx = train.get_context()
+    state, step = _debug_state(device, config["lr"])
+    if config.get("from_dataset"):
+        batches = ctx.get_dataset_shard("train").iter_torch_batches(
+            batch_size=DEBUG_BATCH, device=config.get("device"))
+    else:
+        tokens = np.random.default_rng(0).integers(
+            0, 256, (DEBUG_BATCH, DEBUG_SEQ)).astype(np.int32)
+        batches = iter([{"tokens": torch.from_numpy(tokens).to(device)}]
+                       * config["steps"])
+    reset_flash_launches()
+    losses, devices = [], []
+    for _ in range(config["steps"]):
+        b = next(batches)
+        devices.append(str(b["tokens"].device))
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    train.report({"loss": losses[-1], "losses": losses,
+                  "launches": flash_launches(), "split": split,
+                  "batch_devices": devices})
+
+
+def gang_dataset_check(rt, device, use_gpu=True, worker_device=None):
+    """17 (b): a JaxTrainer gang of one GPU worker with
+    ``datasets={"train": ds}``; the worker reads
+    ``get_dataset_shard("train").iter_torch_batches()`` on its card for
+    GANG_STEPS f32 debug steps. Its losses equal the same step run here on
+    the same rows within GANG_RTOL; K1 f32, K2a and K2b launch once per
+    layer per step in the worker; the GPU comes back after the gang."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch.models import llama
+
+    rows = np.random.default_rng(3).integers(
+        0, 256, (GANG_STEPS * DEBUG_BATCH, DEBUG_SEQ)).astype(np.int32)
+    ds = data.from_numpy({"tokens": rows}).repartition(GANG_STEPS)
+    root = tempfile.mkdtemp(prefix="rtt_gang_")
+    out = {"gpu_before": _available_gpu(rt, 1.0)}
+    try:
+        t = time.perf_counter()
+        res = train.JaxTrainer(
+            gang_worker,
+            train_loop_config={"lr": 1e-3, "steps": GANG_STEPS,
+                               "from_dataset": True,
+                               "device": worker_device},
+            scaling_config=train.ScalingConfig(num_workers=1,
+                                               use_gpu=use_gpu),
+            run_config=train.RunConfig(name="gang", storage_path=root),
+            datasets={"train": ds}).fit(timeout_s=600)
+        out["fit_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    m = res.metrics
+    out.update({k: m[k] for k in ("losses", "launches", "split",
+                                  "batch_devices")})
+    # the driver's run of the same step on the same rows
+    state, step = _debug_state(device, 1e-3)
+    want = []
+    for k in range(GANG_STEPS):
+        b = {"tokens": torch.from_numpy(
+            rows[k * DEBUG_BATCH:(k + 1) * DEBUG_BATCH]).to(device)}
+        state, mm = step(state, b)
+        want.append(float(mm["loss"]))
+    out["losses_driver"] = want
+    out["rel_err"] = [abs(a - b) / abs(b) for a, b in zip(m["losses"], want)]
+    n_layers = llama.CONFIGS["debug"].n_layers
+    out["want_launches"] = {"fwd": GANG_STEPS * n_layers, "bwd": 0,
+                            "dq": GANG_STEPS * n_layers,
+                            "dkv": GANG_STEPS * n_layers}
+    if use_gpu:
+        out["gpu_after"] = _available_gpu(rt, out["gpu_before"])
+        assert out["gpu_after"] == out["gpu_before"] == 1.0, out
+        assert m["split"]["visible"] == "0", m["split"]
+    if use_gpu and worker_device is None:     # the worker's card
+        assert all(d.startswith("cuda") for d in m["batch_devices"]), m
+        assert out["launches"] == out["want_launches"], out
+    assert max(out["rel_err"]) <= GANG_RTOL, out
+    return out
+
+
+def _counted_engine_stage():
+    """llm.batch's engine stage with the decode kernels' launches, the
+    engine's decode steps and the stage's creation split added to its
+    output rows (as one JSON string column); made here, in ``__main__``,
+    so the pool actor gets it by value."""
+    from ray_tpu_torch.llm.batch import _EngineStage
+
+    class CountedEngineStage(_EngineStage):
+        def __init__(self, cfg_blob):
+            split = actor_start_split()
+            t = time.monotonic()
+            super().__init__(cfg_blob)
+            split["engine_s"] = time.monotonic() - t
+            split["create_to_ready_s"] = time.monotonic() - float(
+                os.environ.get("RT_CREATE_T") or "nan")
+            self._split = split
+            # timed as phase 5's serve_check times its engine
+            self._decode_s, self._prefill_s, self._finite = [], [], []
+            eng = self.engine
+            if eng.device.type == "cuda":
+                eng._decode = watch(eng._decode, self._decode_s,
+                                    self._finite)
+                eng._prefill = watch(eng._prefill, self._prefill_s,
+                                     self._finite)
+
+        def __call__(self, batch):
+            from ray_tpu_torch.ops.decode_attention import decode_attention
+            from ray_tpu_torch.ops.paged_decode_attention import \
+                paged_decode_attention
+
+            paged_decode_attention.launches = 0
+            decode_attention.launches = 0
+            steps0 = self.engine.stats()["steps"]
+            t = time.perf_counter()
+            out = super().__call__(batch)
+            info = {"call_s": time.perf_counter() - t,
+                    "paged_decode_attention": paged_decode_attention.launches,
+                    "decode_attention": decode_attention.launches,
+                    "decode_steps": self.engine.stats()["steps"] - steps0,
+                    "n_layers": self.engine.config.n_layers,
+                    "device": str(self.engine.device), "split": self._split,
+                    "rows": len(out["generated_tokens"]),
+                    "decode_step_ms_mean": mean_ms(self._decode_s),
+                    "prefill_ms": [1e3 * x for x in self._prefill_s],
+                    "finite": all(self._finite)}
+            out["stage_info"] = [json.dumps(info)] * info["rows"]
+            return out
+
+    return CountedEngineStage
+
+
+def batch_inference_check(rt, prompts, max_tokens, want_outputs, rates,
+                          model="8b", num_gpus=1, device=None, seed=0):
+    """17 (c): phase 5's prompts in a Dataset through
+    ``build_llm_processor(ProcessorConfig(model, num_gpus=1,
+    concurrency=1, seed, phase 5's paged engine))``; the stage actor seeds
+    the weights itself. Its greedy tokens equal ``want_outputs`` (phase
+    5's paged tokens); K3 launches once per layer per decode step in the
+    actor; rows/s and tokens/s of the stage's call beside ``rates``
+    (phase 5's and phase 9's); the GPU comes back when the pool's actor
+    goes."""
+    from ray_tpu_torch import data, llm
+    from ray_tpu_torch.llm import batch as batch_mod
+
+    ds = data.from_items([{"prompt_tokens": list(p)} for p in prompts])
+    cfg = llm.ProcessorConfig(
+        model=model, num_gpus=num_gpus, concurrency=1, seed=seed,
+        batch_size=len(prompts), num_slots=SERVE_ENGINE_KW["num_slots"],
+        max_tokens=max_tokens, device=device,
+        engine_kwargs={k: v for k, v in SERVE_ENGINE_KW.items()
+                       if k != "num_slots"})
+    stage = batch_mod._EngineStage
+    batch_mod._EngineStage = _counted_engine_stage()
+    try:
+        processor = llm.build_llm_processor(cfg)
+        out_ds = processor(ds)
+    finally:
+        batch_mod._EngineStage = stage
+    t = time.perf_counter()
+    rows = out_ds.take_all()
+    wall = time.perf_counter() - t
+    infos = {r["stage_info"] for r in rows}
+    assert len(infos) == 1, infos      # one stage call over every row
+    info = json.loads(infos.pop())
+    outs = [list(map(int, r["generated_tokens"])) for r in rows]
+    tokens = sum(len(o) for o in outs)
+    out = {"rows": len(rows), "tokens": tokens, "wall_s": wall,
+           "call_s": info["call_s"],
+           "rows_per_s": len(rows) / info["call_s"],
+           "tokens_per_s": tokens / info["call_s"],
+           "rows_per_s_with_actor_start": len(rows) / wall, **rates,
+           "launches": {k: info[k] for k in ("paged_decode_attention",
+                                             "decode_attention")},
+           "decode_steps": info["decode_steps"], "device": info["device"],
+           "decode_step_ms_mean": info["decode_step_ms_mean"],
+           "prefill_ms": info["prefill_ms"], "split": info["split"],
+           "equal_to_phase_5": outs == want_outputs}
+    assert out["equal_to_phase_5"], [first_divergence(a, b) for a, b in
+                                     zip(outs, want_outputs)]
+    assert info["finite"], "non-finite logits in the engine stage"
+    out["gpu_after"] = _available_gpu(rt, 1.0)
+    assert out["gpu_after"] == 1.0, out
+    if info["device"].startswith("cuda"):   # the CPU launches nothing
+        assert out["launches"]["paged_decode_attention"] == \
+            info["decode_steps"] * info["n_layers"] > 0, info
+        assert out["launches"]["decode_attention"] == 0, info
+        assert info["split"]["visible"] == "0", info
+    return out
+
+
+def tune_check(rt, use_gpu=True, worker_device=None):
+    """17 (d): ``Tuner(JaxTrainer(gang_worker, one GPU worker))`` over a
+    TUNE_LRS grid, one trial at a time, GANG_STEPS f32 debug steps each:
+    both trials finish, ``get_best_result`` is the lower final loss, each
+    worker launched K1 f32, K2a and K2b once per layer per step, and the
+    GPU comes back."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch.models import llama
+
+    root = tempfile.mkdtemp(prefix="rtt_tune_")
+    out = {"gpu_before": _available_gpu(rt, 1.0)}
+    try:
+        trainer = train.JaxTrainer(
+            gang_worker,
+            train_loop_config={"steps": GANG_STEPS, "device": worker_device},
+            scaling_config=train.ScalingConfig(num_workers=1,
+                                               use_gpu=use_gpu),
+            run_config=train.RunConfig(name="tuned", storage_path=root))
+        t = time.perf_counter()
+        grid = tune.Tuner(
+            trainer, param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        max_concurrent_trials=1),
+        ).fit(timeout_s=600)
+        out["fit_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["errors"] = [r.error for r in grid]
+    assert out["errors"] == [None] * len(TUNE_LRS), out["errors"]
+    out["trials"] = [{"lr": r.config["lr"], "losses": r.metrics["losses"],
+                      "launches": r.metrics["launches"],
+                      "split": r.metrics["split"]} for r in grid]
+    best = grid.get_best_result()
+    out["best_lr"] = best.config["lr"]
+    low = min(out["trials"], key=lambda r: r["losses"][-1])
+    assert best.config["lr"] == low["lr"] and \
+        best.metrics["loss"] == low["losses"][-1], out
+    n_layers = llama.CONFIGS["debug"].n_layers
+    per_trial = {"fwd": GANG_STEPS * n_layers, "bwd": 0,
+                 "dq": GANG_STEPS * n_layers, "dkv": GANG_STEPS * n_layers}
+    out["launches"] = {k: sum(r["launches"][k] for r in out["trials"])
+                       for k in per_trial}
+    if use_gpu:
+        for r in out["trials"]:
+            assert r["split"]["visible"] == "0", r
+            if worker_device is None:         # the workers' card
+                assert r["launches"] == per_trial, (r, per_trial)
+        out["gpu_after"] = _available_gpu(rt, out["gpu_before"])
+        assert out["gpu_after"] == out["gpu_before"] == 1.0, out
+    return out
+
+
+def data_library_check(device, phase8, prompts, max_tokens, want_outputs,
+                       rates, smi=""):
+    """Phase 17: the card's inventory of the Data dependencies, then (a)
+    to (d) under one fresh init(); no process of the session after
+    shutdown()."""
+    import importlib
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import api
+
+    inventory = {}
+    for mod in ("pyarrow", "pandas", "PIL", "optuna"):
+        try:
+            inventory[mod] = importlib.import_module(mod).__version__
+        except ImportError as e:
+            inventory[mod] = f"ImportError: {e}"
+    log(f"[17] inventory: {json.dumps(inventory)} | {smi}")
+    out = {"inventory": inventory, "nvidia_smi": smi}
+    import pyarrow  # noqa: F401 — Data's blocks are Arrow tables
+
+    rt.init()
+    session = api._head["session_dir"]
+    try:
+        t = time.perf_counter()
+        out["dataset_train"] = dataset_train_check(device, phase8)
+        out["dataset_train_s"] = time.perf_counter() - t
+        log("[17] (a) 1b_bench from a Dataset's CUDA batches: " + json.dumps(
+            out["dataset_train"]) + f" | {smi}")
+        t = time.perf_counter()
+        out["gang"] = gang_dataset_check(rt, device)
+        out["gang_s"] = time.perf_counter() - t
+        _log_split("(b) Train worker", out["gang"]["split"])
+        log("[17] (b) gang with datasets=: " + json.dumps(
+            {k: v for k, v in out["gang"].items() if k != "split"}))
+        t = time.perf_counter()
+        out["batch_llm"] = batch_inference_check(rt, prompts, max_tokens,
+                                                 want_outputs, rates)
+        out["batch_llm_s"] = time.perf_counter() - t
+        _log_split("(c) 8b engine stage", out["batch_llm"]["split"])
+        log("[17] (c) 8b batch inference: " + json.dumps(
+            {k: v for k, v in out["batch_llm"].items() if k != "split"})
+            + f" | {smi}")
+        t = time.perf_counter()
+        out["tune"] = tune_check(rt)
+        out["tune_s"] = time.perf_counter() - t
+        for r in out["tune"]["trials"]:
+            _log_split(f"(d) trial lr={r['lr']} worker", r["split"])
+        log("[17] (d) Tune over the trainer: " + json.dumps(
+            {k: v for k, v in out["tune"].items() if k != "trials"}))
+        log("[17] seconds: " + json.dumps({k: out[k] for k in (
+            "dataset_train_s", "gang_s", "batch_llm_s", "tune_s")}))
+    finally:
+        rt.shutdown()
+    out["left_after_shutdown"] = _wait_session_gone(session)
+    assert out["left_after_shutdown"] == [], out["left_after_shutdown"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4642,7 +5207,24 @@ def main() -> int:
     report["rl_algos_s"] = time.perf_counter() - t
     log(f"[16] {smi}: phase time {report['rl_algos_s']:.1f} s")
 
-    # 17. the kernels line and the result line
+    # 17. Data, batch LLM inference and Tune under a fresh init(): 1b_bench
+    # from a Dataset's CUDA batches, a one-GPU gang fed by datasets=, 8b
+    # batch inference on a GPU lease, Tune over a one-GPU trainer
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    p5 = report["serve"]["paged"]
+    report["data_lib"] = data_library_check(
+        device, report["train"], prompts, 32, p5["outputs"],
+        {"phase_5_tokens_per_s": p5["tokens_per_s"],
+         "phase_5_rows_per_s": p5["requests"] / p5["wall_s"],
+         "phase_9_actor_tokens_per_s":
+             report["runtime"]["serve"]["tokens_per_s"],
+         "phase_9_actor_start_s": report["runtime"]["actor_start_s"]},
+        smi=smi)
+    report["data_lib_s"] = time.perf_counter() - t
+    log(f"[17] {smi}: phase time {report['data_lib_s']:.1f} s")
+
+    # 18. the kernels line and the result line
     k = report["kernels"]
     lines = []
     for name, kind_, src_kernel, replaces in (
@@ -4652,23 +5234,28 @@ def main() -> int:
             ("decode_attention_kernel", "slot", "decode_attention",
              "ray_tpu/ops/pallas/decode_attention.py:90")):
         rec = k[kind_]["bfloat16"]
-        main_run = report["serve"][kind_]["launches"][src_kernel]
-        # phase 9: the 8b actor's serving run (K3) and the GPU task (K4),
-        # each read around itself in its own process
-        main_run += report["runtime"]["serve"]["launches"][src_kernel]
-        # phase 10: the Serve replica's run (a)-(c) and the PD decode
-        # replica's, each read around itself in its own process
-        main_run += report["serve_lib"]["replica"]["launches"][src_kernel]
-        main_run += report["serve_lib"]["pd"]["decode_replica"]["launches"][
-            src_kernel]
+        # each run read around itself, in its own process: phase 5's
+        # engine; phase 9's 8b actor (K3) and GPU task (K4); phase 10's
+        # Serve replica (a)-(c) and the PD decode replica; phase 17 (c)'s
+        # engine stage; K4 also phase 5c's speculative engines' plain
+        # steps and every draft step
+        by_path = {
+            "5_serve": report["serve"][kind_]["launches"][src_kernel],
+            "9_actor": report["runtime"]["serve"]["launches"][src_kernel],
+            "10_replica": report["serve_lib"]["replica"]["launches"][
+                src_kernel],
+            "10_pd_decode": report["serve_lib"]["pd"]["decode_replica"][
+                "launches"][src_kernel],
+            "17_batch_stage": report["data_lib"]["batch_llm"]["launches"][
+                src_kernel]}
         extra = {}
         if kind_ == "slot":
-            # K4 also runs the speculative engines' plain steps and every
-            # draft step (phase 5c), each run read around itself
-            main_run += sum(report["spec"][n]["launches"][src_kernel]
-                            for n in ("ngram", "self_draft", "draft_1b"))
-            main_run += report["runtime"]["k4_task"]["launches"]
+            by_path.update({f"5c_{n}": report["spec"][n]["launches"][
+                src_kernel] for n in ("ngram", "self_draft", "draft_1b")})
+            by_path["9_task"] = report["runtime"]["k4_task"]["launches"]
             extra["d64"] = k["slot_d64"]
+        main_run = sum(by_path.values())
+        extra["launches_by_path"] = by_path
         lines.append({
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/csrc/decode_attention.cu",
@@ -4682,8 +5269,8 @@ def main() -> int:
     fl = report["flash"]["1b_bench"]
     # launches: every training path's run, each read around itself; bf16:
     # phases 8 (1b_bench), 8c (8x7b), 8d (ViT-B16), 8e (1b_bench under
-    # both remat policies), 11-14; f32: phases 7 (debug Llama) and 8b
-    # (debug MoE and ViT)
+    # both remat policies), 11-14, 17 (a); f32: phases 7 (debug Llama), 8b
+    # (debug MoE and ViT) and 17 (b), (d)
     paths = {"bfloat16": {
         "1b_bench": report["train"]["launches"],
         "8x7b": report["train_moe"]["launches"],
@@ -4701,11 +5288,17 @@ def main() -> int:
         "1b_pipeline": report["coll_pipe"]["pipeline"]["launches"],
         # phase 14: 8x7b on the mesh, then its sp_axis path
         "8x7b_mesh": report["moe_mesh"]["mesh"]["launches"],
-        "8x7b_mesh_sp_axis": report["moe_mesh"]["sp_axis"]["launches"]},
+        "8x7b_mesh_sp_axis": report["moe_mesh"]["sp_axis"]["launches"],
+        # phase 17 (a): bench.run fed by the Dataset, in this process
+        "1b_bench_dataset": report["data_lib"]["dataset_train"]["launches"]},
         "float32": {
         "debug_llama": report["debug_train"]["launches"],
         "debug_moe": report["family_debug"]["moe"]["launches"],
-        "debug_vit": report["family_debug"]["vit"]["launches"]}}
+        "debug_vit": report["family_debug"]["vit"]["launches"],
+        # phase 17 (b): the gang's worker; (d): both trials' workers, each
+        # read in its own process
+        "debug_llama_gang": report["data_lib"]["gang"]["launches"],
+        "debug_llama_tune": report["data_lib"]["tune"]["launches"]}}
     for name, kern, dname, replaces in (
             ("flash_fwd_kernel", "fwd", "bfloat16",
              "ray_tpu/ops/pallas/flash_attention.py:90"),

@@ -44,11 +44,10 @@ _SUBMODULES = {
     "ops", "models", "serve", "bench", "common", "rpc", "gcs", "raylet",
     "object_store", "core_worker", "scheduling", "runtime_env", "util",
     "api", "graph", "collective", "cluster_utils", "parallel", "train",
-    "rl",
+    "rl", "data", "tune", "llm",
 }
 # the JAX package's modules a later slice brings (common/status.py::WAITING)
-_WAITING = {"client", "dashboard", "job", "autoscaler", "control_plane",
-            "data", "tune"}
+_WAITING = {"client", "dashboard", "job", "autoscaler", "control_plane"}
 
 
 def resolve_device(device=None):

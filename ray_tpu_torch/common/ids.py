@@ -144,6 +144,17 @@ class TaskID(BaseID):
         return cls(ActorID.nil_from_job(job_id).binary() + b"\x00" * _TASK_UNIQUE_SIZE)
 
     @classmethod
+    def for_worker_thread(cls, job_id: JobID, worker_id: "WorkerID") -> "TaskID":
+        """The parent of what a worker's threads submit outside any task: its
+        own in each worker (``for_driver``'s is the same in every process of
+        the job, so two workers minted the same ActorIDs from such threads)."""
+        h = hashlib.sha256(b"worker-thread")
+        h.update(worker_id.binary())
+        return cls(
+            ActorID.nil_from_job(job_id).binary() + h.digest()[:_TASK_UNIQUE_SIZE]
+        )
+
+    @classmethod
     def for_normal_task(cls, job_id: JobID, parent_task_id: "TaskID", task_index: int) -> "TaskID":
         h = hashlib.sha256()
         h.update(parent_task_id.binary())

@@ -121,8 +121,6 @@ WAITING = {
     "job": "queue A item 11, jobs",
     "autoscaler": "queue A item 11, the autoscaler",
     "cli": "queue A item 11, the CLI (python -m ray_tpu_torch start)",
-    "data": "queue A item 11, Data",
-    "tune": "queue A item 11, Tune",
 }
 
 

@@ -192,7 +192,12 @@ class CoreWorker:
             self.job_id = job_id or JobID.nil()
 
         self._ctx = _TaskContext()
-        self._driver_task_id = TaskID.for_driver(self.job_id)
+        # the parent task of code outside any task: the driver's script, or
+        # a thread a worker's task started (a Tune trial's trainable, whose
+        # trainer creates actors); a worker's is its own
+        self._driver_task_id = (
+            TaskID.for_driver(self.job_id) if mode == MODE_DRIVER
+            else TaskID.for_worker_thread(self.job_id, self.worker_id))
         self._actor_counter = _Counter()
         # unnamed-actor registration batcher (one register_actors RPC per
         # loop tick instead of one RPC per .remote())
@@ -2282,6 +2287,10 @@ class CoreWorker:
 
     async def h_create_actor(self, creation_spec: bytes, node_id: bytes,
                              gpu_ids=None):
+        # when the creation reached this worker, beside the raylet's spawn
+        # stamp (RT_SPAWN_T) and the factory's fork stamp (RT_CHILD_T): a
+        # pooled worker may have waited long between fork and its actor
+        os.environ["RT_CREATE_T"] = repr(time.monotonic())
         # coalesced device grant: the raylet ships the GPU assignment on
         # the creation push instead of a preceding set_visible_devices
         # round trip (one RPC on the creation critical path, not two)

@@ -769,13 +769,37 @@ class GcsServer:
                 errors.append(f"{e.get('actor_id', b'').hex()}: {ex!r}")
         return {"ok": not errors, "errors": errors}
 
+    def _bundle_node(self, strategy) -> Optional[NodeEntry]:
+        """The node holding the placement-group bundle an actor asks for.
+        The bundle reserved its resources there, so the node's free
+        resources, which ``pick_node`` weighs, may no longer show them: on
+        a node of one GPU, a GPU bundle leaves 0 free, and an actor of that
+        bundle waited for ever once the node's report of the reservation
+        reached the GCS before the actor did. The raylet checks the
+        bundle's own availability."""
+        from ray_tpu_torch.common.task_spec import PlacementGroupStrategy
+
+        if not isinstance(strategy, PlacementGroupStrategy) \
+                or strategy.bundle_index < 0:
+            return None
+        pg = self._pgs.get(strategy.placement_group_id)
+        if pg is None or pg.state != PG_CREATED \
+                or strategy.bundle_index >= len(pg.bundle_nodes):
+            return None
+        nid = pg.bundle_nodes[strategy.bundle_index]
+        entry = self.view.get(nid) if nid is not None else None
+        return entry if entry is not None and entry.alive else None
+
     async def _schedule_actor(self, rec: ActorRecord):
         """GcsActorScheduler equivalent: pick node, ask its raylet to start the
         actor (raylet owns worker pool + resource accounting)."""
         import pickle
 
         spec = pickle.loads(rec.creation_spec)
-        node = policies.pick_node(self.view, spec.required_resources, spec.scheduling_strategy)
+        node = self._bundle_node(spec.scheduling_strategy)
+        if node is None:
+            node = policies.pick_node(self.view, spec.required_resources,
+                                      spec.scheduling_strategy)
         if node is None:
             if rec.actor_id not in self._pending_actor_queue:
                 self._pending_actor_queue.append(rec.actor_id)

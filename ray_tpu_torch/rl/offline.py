@@ -4,8 +4,8 @@
 Reference: ``rllib/offline/`` (JsonWriter/JsonReader sample IO,
 ``rllib/algorithms/bc/bc.py`` behavior cloning on logged actions). The
 JSON lines are the JAX package's, byte for byte, so a file written by
-either package reads the same in the other. ``to_dataset``, the bridge
-into Data, refuses until Data is ported (ROADMAP item 11c).
+either package reads the same in the other. ``to_dataset`` bridges into
+``ray_tpu_torch.data``, one row per transition.
 """
 
 from __future__ import annotations
@@ -95,11 +95,15 @@ class JsonReader:
 
 
 def to_dataset(path: str):
-    """Bridge into Data (one block row per transition): refuses until
-    Data is ported."""
-    from ray_tpu_torch.common.status import not_ported
+    """Bridge into ray_tpu_torch.data: one block row per transition."""
+    from ray_tpu_torch import data
 
-    raise not_ported("data")
+    cols = JsonReader(path).read_all()
+    n = len(cols["actions"])
+    return data.from_items([
+        {k: cols[k][i].tolist() if cols[k][i].ndim else cols[k][i].item()
+         for k in cols} for i in range(n)
+    ])
 
 
 def collect(env_spec, policy_params, path: str, *, num_steps: int = 2048,

@@ -15,7 +15,6 @@ import os
 import threading
 from typing import Any, Dict, List, Optional
 
-from ray_tpu_torch.common.status import not_ported
 from ray_tpu_torch.train.checkpoint import Checkpoint
 
 _context_lock = threading.Lock()
@@ -50,6 +49,8 @@ class TrainContext:
         default_factory=threading.Lock, repr=False)
     _stop_event: threading.Event = dataclasses.field(
         default_factory=threading.Event, repr=False)
+    # name -> this rank's DataIterator (JaxTrainer(datasets=...))
+    _datasets: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def get_experiment_name(self) -> str:
         return self.experiment_name
@@ -76,8 +77,15 @@ class TrainContext:
         return self.storage_path
 
     def get_dataset_shard(self, name: str = "train"):
-        """This worker's Data shard: Data is not ported yet."""
-        raise not_ported("data")
+        """This worker's streaming shard of the trainer dataset ``name``
+        (reference: ``ray.train.get_dataset_shard``): a
+        :class:`~ray_tpu_torch.data.DataIterator` fed by ``streaming_split``;
+        ``iter_torch_batches()`` lands its batches on this worker's GPU."""
+        if name not in self._datasets:
+            raise KeyError(
+                f"no dataset shard {name!r}; trainer datasets: "
+                f"{sorted(self._datasets)}")
+        return self._datasets[name]
 
     def get_checkpoint(self) -> Optional[Checkpoint]:
         """Checkpoint to resume from (set on restore / failure restart)."""
@@ -124,9 +132,9 @@ class TrainContext:
 
 
 def get_dataset_shard(name: str = "train"):
-    """This worker's Data shard (reference:
-    ``ray.train.get_dataset_shard``): Data is not ported yet."""
-    raise not_ported("data")
+    """This worker's dataset shard (reference:
+    ``ray.train.get_dataset_shard``)."""
+    return get_context().get_dataset_shard(name)
 
 
 def get_context() -> TrainContext:

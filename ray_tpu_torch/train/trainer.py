@@ -18,7 +18,6 @@ import os
 import time
 from typing import Any, Callable, Dict, Optional
 
-from ray_tpu_torch.common.status import not_ported
 from ray_tpu_torch.train.checkpoint import (
     Checkpoint,
     CheckpointConfig,
@@ -92,8 +91,6 @@ class JaxTrainer:
                  scaling_policy=None,
                  datasets: Optional[dict] = None,
                  pipeline_spec=None):
-        if datasets:
-            raise not_ported("data")
         if (train_loop_per_worker is None) == (pipeline_spec is None):
             raise ValueError(
                 "JaxTrainer needs exactly one of train_loop_per_worker "
@@ -106,6 +103,37 @@ class JaxTrainer:
         self.resume_from = resume_from_checkpoint
         self.poll_interval_s = poll_interval_s
         self._policy_override = scaling_policy
+        # name -> Dataset: split per gang size at start, one DataIterator
+        # per rank (reference: Train dataset ingest via streaming_split)
+        self.datasets = dict(datasets or {})
+        self._split_coords: list = []
+
+    def _reap_coords(self):
+        """Kill split coordinators so their streaming executions stop
+        (and their buffered block refs unpin)."""
+        import ray_tpu_torch
+
+        for coord in self._split_coords:
+            try:
+                ray_tpu_torch.kill(coord)
+            except Exception:  # noqa: BLE001
+                pass
+        self._split_coords = []
+
+    def _make_shards(self, size: int):
+        """Split each named dataset into per-rank streaming iterators for
+        THIS gang instance; a resize re-splits at the new size. Old split
+        coordinators are reaped so their executions stop."""
+        if not self.datasets:
+            return None
+        self._reap_coords()
+        shards = {}
+        for dname, ds in self.datasets.items():
+            its = ds.streaming_split(size)
+            if its:
+                self._split_coords.append(its[0]._coord)
+            shards[dname] = its
+        return shards
 
     # ------------------------------------------------------------------ fit
     def fit(self, timeout_s: float = 3600.0) -> Result:
@@ -137,8 +165,14 @@ class JaxTrainer:
         else:
             policy = FixedScalingPolicy(sc.num_workers)
         self._policy = policy
-        return self._fit_loop(sc, policy, manager, name, storage,
-                              time.monotonic() + timeout_s)
+        try:
+            return self._fit_loop(sc, policy, manager, name, storage,
+                                  time.monotonic() + timeout_s)
+        finally:
+            # every exit (success, timeout, max-failures, scheduling
+            # failure) reaps split coordinators — a raising exit must not
+            # leave their streaming executions running
+            self._reap_coords()
 
     def _fit_pipeline(self, storage: str, timeout_s: float) -> Result:
         """MPMD pipeline mode: stage actors on channel hops instead of an
@@ -193,6 +227,7 @@ class JaxTrainer:
                 # start() inside the try: a scheduling failure must still
                 # release the placement group + any created actors.
                 group.start(experiment_name=name, storage_path=storage,
+                            dataset_shards=self._make_shards(size),
                             train_fn=self.train_fn, config=self.config,
                             resume_from_path=resume.path if resume else None)
                 error, last_metrics = self._poll_until_done(

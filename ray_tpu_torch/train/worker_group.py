@@ -53,7 +53,10 @@ class TrainWorker:
         from ray_tpu_torch.train.context import TrainContext, _set_context
 
         resume = ctx_kwargs.pop("resume_from_path", None)
+        datasets = ctx_kwargs.pop("datasets", None)
         ctx = TrainContext(**ctx_kwargs)
+        if datasets:
+            ctx._datasets = dict(datasets)
         if resume:
             ctx.resume_from = Checkpoint(resume)
         self._ctx = ctx
@@ -133,6 +136,7 @@ class WorkerGroup:
     def start(self, *, experiment_name: str, storage_path: str,
               train_fn: Callable, config: Optional[dict],
               resume_from_path: Optional[str] = None,
+              dataset_shards: Optional[Dict[str, list]] = None,
               pg_timeout: float = 60.0) -> None:
         import ray_tpu_torch
 
@@ -182,6 +186,9 @@ class WorkerGroup:
                 "storage_path": storage_path,
                 "coordinator": coordinator,
                 "resume_from_path": resume_from_path,
+                "datasets": ({name: shards[rank] for name, shards
+                              in dataset_shards.items()}
+                             if dataset_shards else None),
             }))
         ray_tpu_torch.get(setups)
         ray_tpu_torch.get([w.run.remote(train_fn, config)

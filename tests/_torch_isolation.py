@@ -8,8 +8,15 @@ the stray processes that descend from this pytest process, found by
 walking ``/proc/*/stat`` parent links down from ``os.getpid()``. It never
 signals a process outside that tree: under xdist, the other workers'
 clusters are not this file's to end.
+
+While the file runs, every STALL_DUMP_S seconds ``faulthandler`` writes
+every thread's stack to file descriptor 2: a file that stalls names where
+it stopped, in the captured stderr of the test that was running (shown
+when that test fails) well before the whole run's time limit. A file that
+passes ends long before the first dump.
 """
 
+import faulthandler
 import importlib
 import os
 import signal
@@ -19,6 +26,9 @@ import time
 import pytest
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
+# the slowest port test file takes about 60 s alone and a few times that
+# under the parallel tier-1 run
+STALL_DUMP_S = 240
 
 
 def _children() -> dict:
@@ -89,7 +99,12 @@ def shutdown_started_packages() -> None:
 @pytest.fixture(autouse=True, scope="module")
 def _module_isolation_guard():
     """Module teardown: stop what this process started, reap only its
-    descendants (replaces tests/conftest.py's machine-wide pkill)."""
-    yield
+    descendants (replaces tests/conftest.py's machine-wide pkill); the
+    stall dump is armed while the file runs."""
+    faulthandler.dump_traceback_later(STALL_DUMP_S, repeat=True, file=2)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
     shutdown_started_packages()
     reap_descendants()

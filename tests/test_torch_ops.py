@@ -178,6 +178,60 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     assert not offenders, offenders
 
 
+_LAZY_IMPORTS = ("pyarrow", "pandas", "PIL", "cloudpickle")
+
+
+def _module_level_imports(path):
+    """The modules a file imports at its top level (outside functions)."""
+    tree = ast.parse(open(path).read(), path)
+    names = []
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+def test_data_llm_tune_import_heavy_modules_inside_functions():
+    """Data, batch LLM inference and Tune import pyarrow, pandas, PIL and
+    cloudpickle only inside the functions that need them; the walk above
+    covers these files (and the ``ray_tpu.`` names in their strings)."""
+    files = [f for f in _port_files() if os.sep + os.path.join(
+        "ray_tpu_torch", "") in f and os.path.relpath(
+        f, os.path.join(REPO, "ray_tpu_torch")).split(os.sep)[0]
+        in ("data", "llm", "tune")]
+    assert len(files) == 15, files
+    offenders = {os.path.relpath(f, REPO): [
+        m for m in _module_level_imports(f)
+        if m.split(".")[0] in _LAZY_IMPORTS] for f in files}
+    assert not {f: m for f, m in offenders.items() if m}, offenders
+    # and importing them loads none of those, nor torch
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import ray_tpu_torch.data, ray_tpu_torch.llm, "
+            "ray_tpu_torch.tune\n"
+            "print([m for m in ('pyarrow', 'pandas', 'PIL', 'torch', 'jax') "
+            "if m in sys.modules])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_package_lists_the_ported_libraries():
+    import ray_tpu_torch
+    from ray_tpu_torch.common.status import WAITING
+
+    for name in ("data", "tune", "llm"):
+        assert name in dir(ray_tpu_torch)
+        assert name not in WAITING
+        assert getattr(ray_tpu_torch, name).__name__ == f"ray_tpu_torch.{name}"
+
+
 def test_hygiene_check_catches_offenders(tmp_path):
     p = tmp_path / "mod.py"
     p.write_text("import jax.numpy as jnp\nfrom ray_tpu.models import llama\n"
@@ -214,9 +268,9 @@ def test_native_loaders_build_the_ports_own_sources():
 
 
 def test_new_modules_import_without_jax_or_ray_tpu():
-    """The modules of the graph, parallel, train, collective and RL
-    slices load in a fresh interpreter with no jax and nothing of ray_tpu
-    in ``sys.modules``."""
+    """The modules of the graph, parallel, train, collective, RL, Data,
+    batch LLM and Tune slices load in a fresh interpreter with no jax and
+    nothing of ray_tpu in ``sys.modules``."""
     import subprocess
     import sys
 
@@ -233,6 +287,13 @@ def test_new_modules_import_without_jax_or_ray_tpu():
             "env_runner, module, envs, connectors, algorithm\n"
             "from ray_tpu_torch.util import ActorPool, Queue, state, "
             "profiling\n"
+            "import ray_tpu_torch.data, ray_tpu_torch.llm, "
+            "ray_tpu_torch.tune\n"
+            "from ray_tpu_torch.data import (block, connectors, context, "
+            "dataset, datasource, execution, optimizer, shuffle)\n"
+            "from ray_tpu_torch.tune import search, search_algo, tuner\n"
+            "from ray_tpu_torch.llm import batch\n"
+
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu')]\n"
             "print(bad)\n")

@@ -156,8 +156,20 @@ def test_json_files_are_byte_compatible_both_ways(tmp_path):
             _bits_equal(t[k], j[k])
     rows = [json.loads(line) for line in tfile.read_text().splitlines()]
     assert len(rows) == len(frags)
-    with pytest.raises(NotImplementedError, match="item 11, Data"):
-        toffline.to_dataset(str(tmp_path / "t"))
+    # to_dataset: the same rows, one per transition, in both packages (the
+    # plan's read task is what a worker runs; no cluster needed)
+    tds = toffline.to_dataset(str(tmp_path / "t"))
+    jds = joffline.to_dataset(str(tmp_path / "t"))
+    tblocks = [task() for task in tds._ops[0].read_tasks]
+    jblocks = [task() for task in jds._ops[0].read_tasks]
+    assert len(tblocks) == len(jblocks) == 1
+    assert tblocks[0].equals(jblocks[0])
+    from ray_tpu.data import block as jblock
+    from ray_tpu_torch.data import block as tblock
+
+    trows = tblock.block_to_rows(tblocks[0])
+    assert trows == jblock.block_to_rows(jblocks[0])
+    assert len(trows) == sum(len(f["actions"]) for f in frags)
 
 
 @pytest.fixture(scope="module")

@@ -496,8 +496,8 @@ _WAITING_CASES = {
     "cli": (_refused_cli, "item 11, the CLI"),
     **{name: (lambda name=name: getattr(ray_tpu_torch, name), item)
        for name, item in (
-           ("job", "item 11, jobs"), ("data", "item 11, Data"),
-           ("tune", "item 11, Tune"))},
+           ("job", "item 11, jobs"), ("data", None), ("tune", None),
+           ("llm", None))},
 }
 
 
@@ -861,3 +861,38 @@ def test_cuda_marker_without_a_gpu_raises():
     back = device.restore_on_device(
         {"w": device.HostTensor(torch.ones(2), "cpu")})
     assert torch.equal(back["w"], torch.ones(2))
+
+
+def test_gpu_actor_of_a_bundle_after_the_gcs_saw_the_bundle_reserved(rt):
+    """A GPU actor of a placement-group bundle comes up when the GCS's
+    view already shows the node's one GPU reserved by that bundle (0
+    free). The GCS used to pick the actor's node by the node's free
+    resources, so such an actor stayed pending for ever: how a Train
+    gang's one GPU worker sometimes never came up (ROADMAP C.4 (a))."""
+    from ray_tpu_torch.core_worker.placement_group import (
+        PlacementGroupSchedulingStrategy)
+
+    @rt.remote(num_gpus=1)
+    class Worker:
+        def visible(self):
+            return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    pg = rt.placement_group([{"GPU": 1}])
+    assert pg.ready(timeout=TIMEOUT)
+    deadline = time.monotonic() + 20
+    while rt.available_resources().get("GPU", 0.0) != 0.0 \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert rt.available_resources().get("GPU", 0.0) == 0.0
+    try:
+        w = Worker.options(scheduling_strategy=PlacementGroupSchedulingStrategy(
+            placement_group=pg, placement_group_bundle_index=0)).remote()
+        assert rt.get(w.visible.remote(), timeout=20) == "0"
+        rt.kill(w)
+    finally:
+        rt.remove_placement_group(pg)
+    deadline = time.monotonic() + 20
+    while rt.available_resources().get("GPU", 0.0) != 1.0 \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert rt.available_resources().get("GPU", 0.0) == 1.0

@@ -13,15 +13,17 @@ and, for the port, to what ``ray_tpu`` gave on the same part:
 - ``TorchTrainer``'s DDP gradient sync on gloo (2 workers, different data,
   the same weights after 10 steps; ``prepare_data_loader`` shards and
   reshuffles): the weights equal across the packages to 1e-6;
-- the ``Checkpoint`` pytree round trip.
+- the ``Checkpoint`` pytree round trip;
+- ``datasets=`` feeding a gang of 2 CPU workers through
+  ``get_dataset_shard``: the same rows on each rank, and least-squares
+  losses within 1e-6 of JAX's.
 
 Then the port alone: a ``use_gpu`` bundle takes the GPU lease path (the
 worker sees its grant as ``CUDA_VISIBLE_DEVICES``; ``init(num_gpus=1)``
 on the CPU is a plain node count), ``ZeroShardedOptimizer`` over the
 port's KV group (its ranks on threads over an in-memory KV) equals
 ``ray_tpu``'s ``FlatOptimizer`` on the full vector bit for bit, as does
-the port's own ``FlatOptimizer``, and ``datasets=``
-refuses with its ROADMAP item (``pipeline_spec=`` runs in
+the port's own ``FlatOptimizer`` (``pipeline_spec=`` runs in
 tests/test_torch_train_pipeline.py).
 
 Only ``ray_tpu``'s side runs a part once more, on a fresh cluster, when
@@ -32,6 +34,7 @@ workers (ROADMAP.md C.2). The port fails on its first error.
 """
 
 import importlib
+import json
 import os
 import threading
 
@@ -316,6 +319,79 @@ def test_torch_trainer_ddp_gradient_sync(pkg, tmp_path):
         _RESULTS["ddp"] = got
 
 
+def _datasets_gang(p, tmp):
+    """A gang of 2 CPU workers fed by ``datasets=``: each rank reads its
+    ``get_dataset_shard("train")`` (a ``streaming_split`` iterator) and
+    takes least-squares SGD steps on its batches with the package's own
+    array library (JAX's jnp, the port's torch), reporting every loss and
+    the rows it saw."""
+    name = p.name
+
+    def train_fn(config):
+        train = importlib.import_module(f"{name}.train")
+        ctx = train.get_context()
+        shard = train.get_dataset_shard("train")
+        w = np.zeros(4, np.float32)
+        losses, ids = [], []
+        if name == "ray_tpu_torch":
+            import torch
+
+            batches = shard.iter_torch_batches(batch_size=4,
+                                               device="cpu")
+            w = torch.from_numpy(w)
+        else:
+            import jax.numpy as jnp
+
+            batches = ({k: jnp.asarray(v) for k, v in b.items()}
+                       for b in shard.iter_batches(batch_size=4))
+            w = jnp.asarray(w)
+        for b in batches:
+            err = b["x"] @ w - b["y"]
+            losses.append(float((err * err).mean()))
+            w = w - 0.1 * (2.0 / len(err)) * (b["x"].T @ err)
+            ids += [int(i) for i in np.asarray(b["id"])]
+        # each rank's own record: the gang's last report may be either's
+        with open(os.path.join(ctx.get_storage_path(),
+                               f"rank{ctx.get_world_rank()}.json"),
+                  "w") as f:
+            json.dump({"losses": losses, "ids": ids}, f)
+        train.report({"done": True})
+
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((24, 4)).astype(np.float32)
+    y = (x @ np.array([1.0, -2.0, 0.5, 3.0], np.float32)).astype(np.float32)
+    ds = p.data.from_numpy({"id": np.arange(24), "x": x, "y": y}) \
+        .repartition(6)
+    t = p.train
+    res = t.JaxTrainer(
+        train_fn, scaling_config=t.ScalingConfig(num_workers=2),
+        run_config=t.RunConfig(name="datasets", storage_path=tmp),
+        datasets={"train": ds},
+    ).fit(timeout_s=TIMEOUT)
+    out = []
+    for rank in range(2):
+        with open(os.path.join(res.path, f"rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def test_datasets_feed_the_gang(pkg, tmp_path):
+    pkg.data = importlib.import_module(f"{pkg.name}.data")
+    got = _run(pkg, _datasets_gang, str(tmp_path))
+    ids = got[0]["ids"] + got[1]["ids"]
+    assert sorted(ids) == list(range(24))      # each row on one rank
+    for rank in got:
+        assert len(rank["losses"]) == -(-len(rank["ids"]) // 4)
+    if pkg.port:
+        want = _RESULTS["datasets"]
+        for g, w in zip(got, want):
+            assert g["ids"] == w["ids"]
+            np.testing.assert_allclose(g["losses"], w["losses"],
+                                       rtol=DDP_TOL)
+    else:
+        _RESULTS["datasets"] = got
+
+
 def test_checkpoint_pytree_roundtrip(pkg, tmp_path):
     tree = {"a": np.arange(6.0).reshape(2, 3), "b": {"c": np.float32(2.5)},
             "n": 7}
@@ -387,20 +463,22 @@ def test_gpu_lease_without_cuda_refuses(monkeypatch):
 
 
 def test_datasets_and_pipeline_spec_refuse():
-    """``datasets=`` refuses with its ROADMAP item; ``pipeline_spec=`` is
-    ported (tests/test_torch_train_pipeline.py runs it) and, as in
-    ``ray_tpu``, takes the place of the gang's train loop: exactly one of
-    the two."""
+    """``datasets=`` is kept for the gang (test_datasets_feed_the_gang runs
+    it), and ``get_dataset_shard`` outside a training worker refuses;
+    ``pipeline_spec=`` is ported (tests/test_torch_train_pipeline.py runs
+    it) and, as in ``ray_tpu``, takes the place of the gang's train loop:
+    exactly one of the two."""
     from ray_tpu_torch import train as t
 
-    with pytest.raises(NotImplementedError, match="item 11, Data"):
-        t.JaxTrainer(lambda: None, datasets={"train": object()})
+    ds = object()
+    assert t.JaxTrainer(lambda: None, datasets={"train": ds}).datasets == {
+        "train": ds}
     with pytest.raises(ValueError, match="exactly one"):
         t.JaxTrainer()
     with pytest.raises(ValueError, match="exactly one"):
         t.JaxTrainer(lambda: None, pipeline_spec=object())
     assert t.JaxTrainer(pipeline_spec=object()).pipeline_spec is not None
-    with pytest.raises(NotImplementedError, match="item 11, Data"):
+    with pytest.raises(RuntimeError, match="outside a training worker"):
         t.get_dataset_shard("train")
 
 
